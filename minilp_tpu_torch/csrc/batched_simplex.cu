@@ -34,25 +34,14 @@
 // reductions through shared memory); spreading one LP over a cluster of SMs
 // is the next step.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
+#include "simplex_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kIntMax = 0x7fffffff;
 // Newton-refresh GEMM tiling: 64 x 64 output tile, 16-deep k slabs; each of
 // the 512 threads owns a 2 x 4 patch of the tile.
 constexpr int kTile = 64;
 constexpr int kTileK = 16;
-
-// Status and VarStat codes (minilp_tpu_torch/status.py).
-constexpr int RUNNING = 0, OPTIMAL = 1, INFEASIBLE = 2, UNBOUNDED = 3,
-              MAX_ITER = 4, NUMERICAL = 5;
-constexpr int AT_LOWER = 0, AT_UPPER = 1, FREE = 2, FIXED = 3, BASIC = 4;
 
 struct Params {
   int m, n, slack0, max_iter, refactor_period, bland_after, warm;
@@ -65,125 +54,6 @@ struct Smem {
   float As[kTileK][kTile + 1];  // P tile, k-major; +1 breaks store conflicts
   alignas(16) float Bs[kTileK][kTile];
 };
-
-// ---- block reductions: every thread returns the same value -----------------
-// Lane 0 of each warp publishes its warp's value; every thread then folds the
-// kWarps values in warp order, so the result is identical in all threads.
-// Each starts with a barrier that protects the scratch from its last reader.
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (isnan(a) || isnan(b)) ? NAN : fminf(a, b);  // jnp.minimum semantics
-}
-
-// argmax order: larger value first, NaN above everything, lower index on ties
-// (lax.argmax / torch.argmax semantics).
-__device__ __forceinline__ bool better(float a, int ia, float b, int ib) {
-  const bool na = isnan(a), nb = isnan(b);
-  if (na || nb) return na && (!nb || ia < ib);
-  return a > b || (a == b && ia < ib);
-}
-
-__device__ float block_sum(float v, Smem& sm) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sm.red_f[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = sm.red_f[0];
-  for (int i = 1; i < kWarps; ++i) s += sm.red_f[i];
-  return s;
-}
-
-__device__ int block_sum_int(int v, Smem& sm) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sm.red_i[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int s = 0;
-  for (int i = 0; i < kWarps; ++i) s += sm.red_i[i];
-  return s;
-}
-
-__device__ int block_min_int(int v, Smem& sm) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sm.red_i[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int s = sm.red_i[0];
-  for (int i = 1; i < kWarps; ++i) s = min(s, sm.red_i[i]);
-  return s;
-}
-
-__device__ float block_min_nan(float v, Smem& sm) {
-  for (int o = 16; o > 0; o >>= 1) v = min_nan(v, __shfl_xor_sync(kFull, v, o));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sm.red_f[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float s = sm.red_f[0];
-  for (int i = 1; i < kWarps; ++i) s = min_nan(s, sm.red_f[i]);
-  return s;
-}
-
-__device__ int block_argmax(float v, int idx, Smem& sm) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, v, o);
-    const int oi = __shfl_xor_sync(kFull, idx, o);
-    if (better(ov, oi, v, idx)) { v = ov; idx = oi; }
-  }
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) {
-    sm.red_f[threadIdx.x >> 5] = v;
-    sm.red_i[threadIdx.x >> 5] = idx;
-  }
-  __syncthreads();
-  v = sm.red_f[0];
-  idx = sm.red_i[0];
-  for (int i = 1; i < kWarps; ++i)
-    if (better(sm.red_f[i], sm.red_i[i], v, idx)) { v = sm.red_f[i]; idx = sm.red_i[i]; }
-  return idx;
-}
-
-// ---- dense kernels on one LP ----------------------------------------------
-// Pointers to data the kernel writes carry no __restrict__: the read-only
-// (non-coherent) cache path must never serve them.
-
-// f(i, sum_j M[i, j] x[j]) for each row i < rows: one warp per row, lanes
-// stride the row (coalesced), fixed-order shuffle sum; lane 0 calls f.
-template <typename F>
-__device__ void matvec(const float* M, const float* x, int rows, int cols, F f) {
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x >> 5; i < rows; i += kWarps) {
-    const float* row = M + (size_t)i * cols;
-    float acc = 0.f;
-    for (int j = lane; j < cols; j += 32) acc = fmaf(row[j], x[j], acc);
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
-    if (lane == 0) f(i, acc);
-  }
-}
-
-// f(j, sum_i y[i] M[i, j]) for each column j < cols: one thread per column
-// (neighbouring threads read neighbouring addresses), four columns in flight
-// per thread, each summed over i in order.
-template <typename F>
-__device__ void colsums(const float* y, const float* M, int rows, int cols, F f) {
-  for (int j0 = threadIdx.x; j0 < cols; j0 += 4 * kThreads) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    int jj[4];
-    bool ok[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) { jj[k] = j0 + k * kThreads; ok[k] = jj[k] < cols; }
-#pragma unroll 4
-    for (int i = 0; i < rows; ++i) {
-      const float yi = y[i];
-      const float* row = M + (size_t)i * cols;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (ok[k]) acc[k] = fmaf(yi, row[jj[k]], acc[k]);
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (ok[k]) f(jj[k], acc[k]);
-  }
-}
 
 // C = base + sgn * P Q for m x m row-major matrices (base == nullptr: the
 // identity).  The block walks the 64 x 64 output tiles in turn; k runs in
@@ -233,12 +103,6 @@ __device__ void gemm(const float* P, const float* Q, float* C, const float* base
       }
     }
   }
-}
-
-__device__ __forceinline__ float nonbasic_x(int v, float l, float h) {
-  if (v == AT_LOWER || v == FIXED) return l;
-  if (v == AT_UPPER) return h;
-  return 0.f;
 }
 
 // One LP's global-memory state (the TPU kernel's VMEM scratch).

@@ -1,0 +1,965 @@
+// K2, the streaming single-LP simplex kernel, in CUDA C++ for Hopper (sm_90a).
+//
+// Replaces minilp_tpu/ops/kernels/streaming_simplex.py::_stream_kernel, the
+// Pallas TPU kernel launched by stream_kernel_call.  It computes the same
+// thing: one Netlib-scale LP inside one launch.  A is held transposed (Aᵀ,
+// n x m), so that column j of A is one contiguous row.  Each MAJOR iteration
+// prices every column once against Aᵀ (phase 1: composite infeasibility
+// costs; phase 2: reduced costs from y = c_B B^-1), picks the top `minor_k`
+// candidates by projected steepest-edge score, forms their tableau block
+// W[k] = B^-1 a_k, and runs up to `minor_k` MINOR pivots on W alone: exact
+// candidate reduced costs (phase 2) or recomputed against sigma (phase 1),
+// stale Devex weights synced on the entering and leaving lanes, the ratio
+// test with bound flips, and (at m >= long_step_min_m) the phase-1 long
+// step.  The pivots' eta vectors are composed in a ledger and folded into the
+// dense f32 B^-1 once per major.  Every `refactor_period` pivots, and before
+// any terminal claim, B^-1 is refreshed by Newton sweeps X <- 2X - (X B) X
+// against B gathered from Aᵀ by basis index; the telltale |I - X B|_inf >
+// 0.5 exits NUMERICAL.  The refresh recomputes x_B (with one refinement
+// step), d and the steepest-edge weights 1 + |B^-1 a_j|^2.  Cold from the
+// slack basis, or warm from (basis, vstat, B^-1): the chunk driver relaunches
+// warm from the previous launch's outputs.
+//
+// Semantics kept from the TPU kernel: f32 arithmetic (no TF32, no fast math),
+// lowest-index ties in every argmax/argmin, the ratio tie window
+// ratio <= t*1.0001 + 1e-6, terminal claims believed only from a freshly
+// refreshed state (fresh/force), the confirm/regress rule on the refreshed
+// state, the suboptimization exit at minor_decay, phase-1 stall accounting by
+// measured infeasibility progress, and NaN propagation wherever the TPU kernel
+// used jnp.maximum/jnp.minimum.  What went: the TPU's one-hot selects and
+// masked sums (an index is an index here: c_B/lo_B/hi_B, candidate columns
+// and the basis rows are read by index), its DMA double buffers, and the
+// candidate lanes past the selected count (inert on the TPU too, skipped).
+//
+// What bounds it on an H100, at the 25fv47 shape (m ~ 824, n ~ 2.5k): one LP
+// is one block on one SM.  Aᵀ (8 MB) and B^-1 (2.7 MB) cannot live in the
+// SM's 227 KB of shared memory, so they stay in global memory and, with the
+// refresh scratch (3 m^2 floats, 8 MB), resident in the 50 MB L2.  Shared
+// memory holds the reduction scratch, the double-buffered 128 x 16 GEMM
+// slabs and the candidate lanes (38 KB).  A major reads Aᵀ once (pricing) plus B^-1 once
+// or twice (y, and W), and the fold reads and writes B^-1: per-SM L2
+// bandwidth bounds it.  The refresh is m^3-class work on one SM's FP32 units:
+// two Newton sweeps (4 products, 4.5 GFLOP at m = 824) and the steepest-edge
+// weights (an n x m x m product, 3.5 GFLOP); it dominates.  This first design
+// keeps one persistent block with block-uniform control flow (every loop
+// scalar comes from a block reduction); spreading the refresh over many SMs
+// is the next step.
+
+#include "simplex_common.cuh"
+
+namespace {
+
+constexpr int kMaxK = 128;  // candidate lanes (minor_k <= kMaxK)
+// GEMM tiling: 128 x 128 output tiles, 16-deep k slabs double-buffered in
+// shared memory; each of the 512 threads (16 x 32) owns a 4 x 8 patch.
+constexpr int kTM = 128, kTN = 128, kTK = 16;
+constexpr int kPR = 4, kPC = 8;
+using Patch = float[kPR][kPC];
+
+struct Params {
+  int m, n, slack0, max_iter, refactor_period, newton_sweeps, bland_after, minor_k;
+  int se_weights, xb_refine, long_step, warm;
+  float feas_tol, opt_tol, pivot_tol, devex_floor, devex_reset, regress_tol,
+      minor_decay;
+};
+
+struct Smem {
+  float red_f[kWarps];
+  int red_i[kWarps];
+  // GEMM slabs, k-major; the padding keeps rows 16-byte aligned
+  alignas(16) float As[2][kTK][kTM + 4];
+  alignas(16) float Bs[2][kTK][kTN + 4];
+  // candidate lanes (the TPU kernel's (1, 128) lane records)
+  int cand_ids[kMaxK];
+  int vstat_cand[kMaxK];
+  int eta_rs[kMaxK];   // leaving row of each ledger eta
+  float d_cand[kMaxK];
+  float wts_cand[kMaxK];
+  float alpha[kMaxK];   // column r of W: the pivot row over the candidates
+  float etacol[kMaxK];  // column r of the eta ledger
+  int lane_i[3];        // lane scan: found, k_devex, k_bland
+  float lane_f[1];      // lane scan: max candidate score
+};
+
+// One LP's global-memory state (the TPU kernel's VMEM scratch and outputs).
+struct Lp {
+  const float *AT, *b, *c, *lo, *hi;  // inputs, never written
+  int *basis, *vstat, *mon;           // outputs
+  float* Binv;                        // output: the maintained inverse
+  float *BT, *H, *Xn;                 // m x m refresh scratch
+  float *W, *etas, *P;                // minor_k x m
+  float *xB, *loB, *hiB, *cB, *beff, *y, *ratio, *tgt, *grow;  // m
+  float *d, *d1, *wts, *sc, *xn;      // n
+};
+
+// C (M x N) = A (M x K) * B (K x N), walked as 128 x 128 output tiles in
+// row-tile-major order with k in order, so every output is a fixed-order fma
+// chain (zero padding past K adds nothing).  A is row-major, (i, k) at
+// A[i * lda + k], or with kAT stored transposed, (i, k) at A[k * lda + i];
+// likewise B, (k, j) at B[k * ldb + j] or with kBT at B[j * ldb + k].  Each
+// slab load reads along the stored rows, and the next slab's loads are in
+// flight while the current one is multiplied.  epi(i0, j0, acc) runs in
+// every thread once per output tile, with the thread's patch at rows
+// i0 + 4 ty + a and columns j0 + 8 tx + c (ty = tid / 16, tx = tid % 16);
+// entries outside M x N hold zeros and epi skips them.
+template <bool kAT, bool kBT, class Epi>
+__device__ void gemm(const float* A, int lda, const float* B, int ldb, int M, int N,
+                     int K, Epi epi, Smem& sm) {
+  constexpr int kPer = kTM * kTK / kThreads;  // slab elements per thread and operand
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tiles_n = (N + kTN - 1) / kTN;
+  const int tiles = ((M + kTM - 1) / kTM) * tiles_n;
+  const int slabs = (K + kTK - 1) / kTK;
+  float ra[kPer], rb[kPer];
+  // element e of a slab: (row, k) of A and (k, col) of B, in load order
+  auto a_at = [&](int e, int& r, int& k) {
+    r = kAT ? e % kTM : e / kTK;
+    k = kAT ? e / kTM : e % kTK;
+  };
+  auto b_at = [&](int e, int& k, int& cc) {
+    k = kBT ? e % kTK : e / kTN;
+    cc = kBT ? e / kTK : e % kTN;
+  };
+  for (int t = 0; t < tiles; ++t) {
+    const int i0 = (t / tiles_n) * kTM, j0 = (t % tiles_n) * kTN;
+    auto fetch = [&](int sl) {
+      const int k0 = sl * kTK;
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int e = tid + u * kThreads;
+        int r, k, cc;
+        a_at(e, r, k);
+        const int gi = i0 + r, gk = k0 + k;
+        ra[u] = (gi < M && gk < K)
+                    ? (kAT ? A[(size_t)gk * lda + gi] : A[(size_t)gi * lda + gk]) : 0.f;
+        b_at(e, k, cc);
+        const int gk2 = k0 + k, gj = j0 + cc;
+        rb[u] = (gk2 < K && gj < N)
+                    ? (kBT ? B[(size_t)gj * ldb + gk2] : B[(size_t)gk2 * ldb + gj]) : 0.f;
+      }
+    };
+    auto stash = [&](int buf) {
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int e = tid + u * kThreads;
+        int r, k, cc;
+        a_at(e, r, k);
+        sm.As[buf][k][r] = ra[u];
+        b_at(e, k, cc);
+        sm.Bs[buf][k][cc] = rb[u];
+      }
+    };
+    float acc[kPR][kPC];
+#pragma unroll
+    for (int a = 0; a < kPR; ++a)
+#pragma unroll
+      for (int c = 0; c < kPC; ++c) acc[a][c] = 0.f;
+    fetch(0);
+    stash(0);
+    __syncthreads();
+    for (int sl = 0; sl < slabs; ++sl) {
+      const int buf = sl & 1;
+      if (sl + 1 < slabs) fetch(sl + 1);
+#pragma unroll
+      for (int k = 0; k < kTK; ++k) {
+        const float4 a4 = *reinterpret_cast<const float4*>(&sm.As[buf][k][ty * kPR]);
+        const float4 b0 = *reinterpret_cast<const float4*>(&sm.Bs[buf][k][tx * kPC]);
+        const float4 b1 = *reinterpret_cast<const float4*>(&sm.Bs[buf][k][tx * kPC + 4]);
+        const float av[kPR] = {a4.x, a4.y, a4.z, a4.w};
+        const float bv[kPC] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int a = 0; a < kPR; ++a)
+#pragma unroll
+          for (int c = 0; c < kPC; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
+      }
+      if (sl + 1 < slabs) stash(buf ^ 1);
+      __syncthreads();
+    }
+    epi(i0, j0, acc);
+  }
+}
+
+// f(j, sum_i y[i] row(i)[j]) for each column j < cols, as `colsums` with the
+// rows given by pointer (row(i)) and the rows with y[i] == 0 skipped: on
+// finite data they add nothing, and the skip is uniform across the block.
+template <class Row, class F>
+__device__ void colsums_rows(const float* y, Row row, int rows, int cols, F f) {
+  for (int j0 = threadIdx.x; j0 < cols; j0 += 4 * kThreads) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    int jj[4];
+    bool ok[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) { jj[k] = j0 + k * kThreads; ok[k] = jj[k] < cols; }
+    for (int i = 0; i < rows; ++i) {
+      const float yi = y[i];
+      if (yi == 0.f) continue;
+      const float* r = row(i);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (ok[k]) acc[k] = fmaf(yi, r[jj[k]], acc[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (ok[k]) f(jj[k], acc[k]);
+  }
+}
+
+__device__ __forceinline__ float sigma_of(float x, float lb, float ub, float ftol) {
+  return x < lb - ftol ? -1.f : (x > ub + ftol ? 1.f : 0.f);
+}
+
+__device__ __forceinline__ float viol_of(float x, float lb, float ub) {
+  return max_nan(lb - x, 0.f) + max_nan(x - ub, 0.f);
+}
+
+// x_B (with one refinement step), the reduced costs d and the projected
+// steepest-edge weights from B^-1 and the statuses (recompute_vectors).
+__device__ void recompute_vectors(const Lp& L, const Params& p, Smem& sm) {
+  const int m = p.m, n = p.n, tid = threadIdx.x;
+  for (int j = tid; j < n; j += kThreads) L.xn[j] = nonbasic_x(L.vstat[j], L.lo[j], L.hi[j]);
+  __syncthreads();
+  // b_eff = b - A x_N = b - sum_j x_N[j] Aᵀ[j, :]
+  colsums_rows(L.xn, [&](int j) { return L.AT + (size_t)j * m; }, n, m,
+               [&](int k, float acc) { L.beff[k] = L.b[k] - acc; });
+  __syncthreads();
+  matvec(L.Binv, L.beff, m, m, [&](int i, float acc) { L.xB[i] = acc; });
+  __syncthreads();
+  if (p.xb_refine) {
+    // r = b_eff - B x_B (B x_B = sum_i x_B[i] Aᵀ[basis[i], :]); x_B += B^-1 r
+    colsums_rows(L.xB, [&](int i) { return L.AT + (size_t)L.basis[i] * m; }, m, m,
+                 [&](int k, float acc) { L.beff[k] = L.beff[k] - acc; });
+    __syncthreads();
+    matvec(L.Binv, L.beff, m, m, [&](int i, float acc) { L.xB[i] = L.xB[i] + acc; });
+    __syncthreads();
+  }
+  colsums(L.cB, L.Binv, m, m, [&](int j, float acc) { L.y[j] = acc; });
+  __syncthreads();
+  matvec(L.AT, L.y, n, m, [&](int j, float acc) {
+    L.d[j] = L.vstat[j] == BASIC ? 0.f : L.c[j] - acc;
+  });
+  if (p.se_weights) {
+    // gamma_j = 1 + |B^-1 a_j|^2: row sums of squares of Aᵀ B^-ᵀ, one
+    // output row tile at a time (its column tiles run in order, and each
+    // half-warp shares the running sums of its four rows)
+    float g[kPR] = {0.f, 0.f, 0.f, 0.f};
+    gemm<false, true>(L.AT, m, L.Binv, m, n, m, m,
+                      [&](int i0, int j0, Patch& acc) {
+                        const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+                        for (int a = 0; a < kPR; ++a) {
+                          float s = 0.f;
+#pragma unroll
+                          for (int cc = 0; cc < kPC; ++cc)
+                            if (j0 + tx * kPC + cc < m) s = fmaf(acc[a][cc], acc[a][cc], s);
+                          for (int o = 8; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+                          g[a] = (j0 == 0 ? 0.f : g[a]) + s;
+                          const int i = i0 + ty * kPR + a;
+                          if (j0 + kTN >= m && tx == 0 && i < n) L.wts[i] = 1.f + g[a];
+                        }
+                      },
+                      sm);
+  }
+  __syncthreads();
+}
+
+// `newton_sweeps` sweeps X <- 2X - (X B) X with B gathered from Aᵀ by basis
+// index (once for all sweeps); returns |I - X B|_inf of the last sweep
+// (NaN-propagating: a NaN telltale does not read as divergence, as on the TPU).
+__device__ float newton_refresh(const Lp& L, const Params& p, Smem& sm) {
+  const int m = p.m;
+  const size_t mm = (size_t)m * m;
+  for (size_t e = threadIdx.x; e < mm; e += kThreads)
+    L.BT[e] = L.AT[(size_t)L.basis[e / m] * m + e % m];  // Bᵀ row i = column basis[i]
+  __syncthreads();
+  float tmax = 0.f;
+  for (int s = 0; s < p.newton_sweeps; ++s) {
+    tmax = 0.f;
+    // H = X B, with B(k, j) = Bᵀ[j, k]; the telltale reads I - H
+    gemm<false, true>(L.Binv, m, L.BT, m, m, m, m,
+                      [&](int i0, int j0, Patch& acc) {
+                        const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+                        for (int a = 0; a < kPR; ++a)
+                          for (int cc = 0; cc < kPC; ++cc) {
+                            const int gi = i0 + ty * kPR + a, gj = j0 + tx * kPC + cc;
+                            if (gi >= m || gj >= m) continue;
+                            L.H[(size_t)gi * m + gj] = acc[a][cc];
+                            tmax = max_nan(tmax, fabsf((gi == gj ? 1.f : 0.f) - acc[a][cc]));
+                          }
+                      },
+                      sm);
+    __syncthreads();
+    // X' = 2X - H X
+    gemm<false, false>(L.H, m, L.Binv, m, m, m, m,
+                       [&](int i0, int j0, Patch& acc) {
+                         const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+                         for (int a = 0; a < kPR; ++a)
+                           for (int cc = 0; cc < kPC; ++cc) {
+                             const int gi = i0 + ty * kPR + a, gj = j0 + tx * kPC + cc;
+                             if (gi >= m || gj >= m) continue;
+                             const size_t e = (size_t)gi * m + gj;
+                             L.Xn[e] = 2.f * L.Binv[e] - acc[a][cc];
+                           }
+                       },
+                       sm);
+    __syncthreads();
+    for (size_t e = threadIdx.x; e < mm; e += kThreads) L.Binv[e] = L.Xn[e];
+    __syncthreads();
+  }
+  return block_max_nan(tmax, sm);
+}
+
+// Phase-1 long step: walk the convex piecewise-linear phase-1 objective along
+// the ray -s w to where its slope turns non-negative, so one pivot repairs
+// many violated rows.  Each row's two events (e1: reaching the violated
+// bound, e2: reaching the far bound) are recomputed from (x_B, bounds, delta)
+// in every pass.
+struct LongStep {
+  bool active, cross;  // slope0 < 0; the slope turns within a finite step
+  float t, tgt;        // step and the leaving row's target bound
+  int r;               // leaving row
+};
+
+struct Events {
+  float t1, w1, g1, t2, w2, g2;  // time, |delta| weight and target of e1, e2
+  bool ok1, ok2;
+};
+
+__device__ __forceinline__ Events row_events(const Lp& L, const Params& p, float s,
+                                             const float* w, int i) {
+  const float x = L.xB[i], lb = L.loB[i], ub = L.hiB[i];
+  const float delta = -s * w[i];
+  const bool up = delta > p.pivot_tol, dn = delta < -p.pivot_tol;
+  const bool below = x < lb - p.feas_tol, above = x > ub + p.feas_tol;
+  const float sdelta = (up || dn) ? delta : 1.f;
+  Events e;
+  e.ok1 = (up && below) || (dn && above);
+  e.g1 = up ? lb : ub;
+  e.w1 = fabsf(e.ok1 ? delta : 0.f);
+  e.t1 = e.ok1 ? max_nan((e.g1 - x) / sdelta, 0.f) : INFINITY;
+  e.ok2 = (up && !above && isfinite(ub)) || (dn && !below && isfinite(lb));
+  e.g2 = up ? ub : lb;
+  e.w2 = fabsf(e.ok2 ? delta : 0.f);
+  e.t2 = e.ok2 ? max_nan((e.g2 - x) / sdelta, 0.f) : INFINITY;
+  return e;
+}
+
+__device__ LongStep long_step(const Lp& L, const Params& p, float s, const float* w,
+                              Smem& sm) {
+  const int m = p.m, tid = threadIdx.x;
+  float sl = 0.f, mx1 = -INFINITY, mx2 = -INFINITY, mn1 = INFINITY, mn2 = INFINITY;
+  for (int i = tid; i < m; i += kThreads) {
+    const float x = L.xB[i];
+    sl += sigma_of(x, L.loB[i], L.hiB[i], p.feas_tol) * (-s * w[i]);
+    const Events e = row_events(L, p, s, w, i);
+    mx1 = max_nan(mx1, e.ok1 ? e.t1 : -INFINITY);
+    mx2 = max_nan(mx2, e.ok2 ? e.t2 : -INFINITY);
+    mn1 = min_nan(mn1, e.t1);
+    mn2 = min_nan(mn2, e.t2);
+  }
+  const float slope0 = block_sum(sl, sm);
+  const float tmax = max_nan(block_max_nan(mx1, sm), block_max_nan(mx2, sm));
+  const float t_min = min_nan(block_min_nan(mn1, sm), block_min_nan(mn2, sm));
+
+  auto g_at = [&](float tt) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int i = tid; i < m; i += kThreads) {
+      const Events e = row_events(L, p, s, w, i);
+      s1 += e.t1 <= tt ? e.w1 : 0.f;
+      s2 += e.t2 <= tt ? e.w2 : 0.f;
+    }
+    const float a = block_sum(s1, sm);
+    const float b = block_sum(s2, sm);
+    return slope0 + a + b;
+  };
+  LongStep ls;
+  ls.active = slope0 < 0.f;
+  ls.cross = ls.active && isfinite(tmax) && g_at(tmax) >= 0.f;
+
+  // the leaving event inside (tl, th]: largest |delta| first
+  auto emit = [&](float tl, float th) {
+    float v1 = -INFINITY, v2 = -INFINITY;
+    int r1 = kIntMax, r2 = kIntMax;
+    for (int i = tid; i < m; i += kThreads) {
+      const Events e = row_events(L, p, s, w, i);
+      const float ad = fabsf(-s * w[i]);
+      const float s1 = (e.t1 > tl && e.t1 <= th) ? ad : -INFINITY;
+      const float s2 = (e.t2 > tl && e.t2 <= th) ? ad : -INFINITY;
+      if (better(s1, i, v1, r1)) { v1 = s1; r1 = i; }
+      if (better(s2, i, v2, r2)) { v2 = s2; r2 = i; }
+    }
+    block_argmax_pair(v1, r1, sm);
+    block_argmax_pair(v2, r2, sm);
+    const bool use2 = v2 > v1;
+    ls.r = use2 ? r2 : r1;
+    const Events e = row_events(L, p, s, w, ls.r);
+    ls.t = use2 ? e.t2 : e.t1;
+    ls.tgt = use2 ? e.g2 : e.g1;
+  };
+  // first-breakpoint probe: when the slope is already non-negative at the
+  // earliest event, that event is the crossing and the bisection is skipped
+  const bool need = ls.cross && g_at(t_min) < 0.f;
+  emit(-1.f, t_min);
+  if (need) {
+    float tl = -1.f, th = isfinite(tmax) ? tmax : 0.f;
+    for (int it = 0; it < 22; ++it) {
+      const float mid = 0.5f * (tl + th);
+      if (g_at(mid) >= 0.f) th = mid; else tl = mid;
+    }
+    emit(tl, th);
+  }
+  return ls;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
+              const float* __restrict__ c, const float* __restrict__ lo,
+              const float* __restrict__ hi, const int* __restrict__ basis0,
+              const int* __restrict__ vstat0, const float* __restrict__ Binv0,
+              int* basis, int* vstat, float* Binv, int* mon, float* ws, Params p) {
+  __shared__ Smem sm;
+  const int m = p.m, n = p.n, K = p.minor_k, tid = threadIdx.x;
+  const size_t mm = (size_t)m * m;
+  const float ftol = p.feas_tol;
+
+  Lp L;
+  L.AT = AT;
+  L.b = b;
+  L.c = c;
+  L.lo = lo;
+  L.hi = hi;
+  L.basis = basis;
+  L.vstat = vstat;
+  L.mon = mon;
+  L.Binv = Binv;
+  L.BT = ws;
+  L.H = ws + mm;
+  L.Xn = ws + 2 * mm;
+  L.W = ws + 3 * mm;
+  L.etas = L.W + (size_t)K * m;
+  L.P = L.etas + (size_t)K * m;
+  L.xB = L.P + (size_t)K * m;
+  L.loB = L.xB + m;
+  L.hiB = L.loB + m;
+  L.cB = L.hiB + m;
+  L.beff = L.cB + m;
+  L.y = L.beff + m;
+  L.ratio = L.y + m;
+  L.tgt = L.ratio + m;
+  L.grow = L.tgt + m;
+  L.d = L.grow + m;
+  L.d1 = L.d + n;
+  L.wts = L.d1 + n;
+  L.sc = L.wts + n;
+  L.xn = L.sc + n;
+
+  // ---- start: warm state handed in, or the slack basis with B^-1 = I -------
+  if (p.warm) {
+    for (size_t e = tid; e < mm; e += kThreads) L.Binv[e] = Binv0[e];
+    for (int i = tid; i < m; i += kThreads) L.basis[i] = basis0[i];
+    for (int j = tid; j < n; j += kThreads) L.vstat[j] = vstat0[j];
+  } else {
+    for (size_t e = tid; e < mm; e += kThreads) L.Binv[e] = (e / m == e % m) ? 1.f : 0.f;
+    for (int i = tid; i < m; i += kThreads) L.basis[i] = p.slack0 + i;
+    // canonical.initial_vstat: fixed => FIXED, finite lower => AT_LOWER,
+    // else finite upper => AT_UPPER, else FREE; the slack block is BASIC
+    for (int j = tid; j < n; j += kThreads) {
+      const float l = L.lo[j], h = L.hi[j];
+      int v = isfinite(l) ? AT_LOWER : (isfinite(h) ? AT_UPPER : FREE);
+      if (l == h) v = FIXED;
+      if (j >= p.slack0 && j < p.slack0 + m) v = BASIC;
+      L.vstat[j] = v;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < m; i += kThreads) {
+    const int k = L.basis[i];
+    L.loB[i] = L.lo[k];
+    L.hiB[i] = L.hi[k];
+    L.cB[i] = L.c[k];
+  }
+  for (int j = tid; j < n; j += kThreads) L.wts[j] = 1.f;
+  __syncthreads();
+  recompute_vectors(L, p, sm);
+
+  // Loop scalars live in registers, identical in every thread.  fresh = 1
+  // <=> (B^-1, x_B, d) were recomputed since the last pivot: terminal claims
+  // are believed only then; a warm start distrusts the handed-in inverse.
+  int status = RUNNING, niter = 0, phase = 1, noimp = 0, force = 0, sref = 0;
+  int fresh = p.warm ? 0 : 1;
+  int n_major = 0, n_refresh = 0;
+  float best_inf = INFINITY, tell = 0.f;
+
+  while (status == RUNNING && niter < p.max_iter) {
+    ++n_major;
+    // ---- refresh decision: maintained-x_B feasibility only TRIGGERS the
+    // refresh; the phase flip is confirmed on the refreshed state
+    int nv = 0;
+    for (int i = tid; i < m; i += kThreads) {
+      const float x = L.xB[i];
+      nv += (x < L.loB[i] - ftol) || (x > L.hiB[i] + ftol);
+    }
+    const bool feasible_pre = block_sum_int(nv, sm) == 0;
+    const bool do_refresh =
+        (phase == 1 && feasible_pre) || force == 1 || sref >= p.refactor_period;
+    if (do_refresh) {
+      ++n_refresh;
+      tell = newton_refresh(L, p, sm);
+      recompute_vectors(L, p, sm);
+      sref = 0;
+      fresh = 1;
+    }
+    const bool diverged = do_refresh && tell > 0.5f;
+    if (do_refresh) {
+      // ---- phase confirm/regress on the refreshed (exact) state
+      int nr = 0;
+      for (int i = tid; i < m; i += kThreads)
+        nr += viol_of(L.xB[i], L.loB[i], L.hiB[i]) > p.regress_tol;
+      const bool ok_now = block_sum_int(nr, sm) == 0;
+      if ((phase == 1 && ok_now) || (phase == 2 && !ok_now)) {
+        phase = ok_now ? 2 : 1;
+        noimp = 0;
+        best_inf = INFINITY;
+      }
+    }
+    const bool p1 = phase == 1;
+
+    // ---- major pricing: one pass over Aᵀ
+    if (p1) {  // d1 = -Aᵀ (sigma B^-1), zero on basic columns
+      for (int i = tid; i < m; i += kThreads)
+        L.grow[i] = sigma_of(L.xB[i], L.loB[i], L.hiB[i], ftol);
+      __syncthreads();
+      colsums(L.grow, L.Binv, m, m, [&](int k, float acc) { L.y[k] = acc; });
+      __syncthreads();
+      matvec(L.AT, L.y, n, m, [&](int j, float acc) {
+        L.d1[j] = L.vstat[j] == BASIC ? 0.f : -acc;
+      });
+      __syncthreads();
+    } else if (!do_refresh) {  // a refresh in this major already computed d
+      colsums(L.cB, L.Binv, m, m, [&](int k, float acc) { L.y[k] = acc; });
+      __syncthreads();
+      matvec(L.AT, L.y, n, m, [&](int j, float acc) {
+        L.d[j] = L.vstat[j] == BASIC ? 0.f : L.c[j] - acc;
+      });
+      __syncthreads();
+    }
+    const float* dcur = p1 ? L.d1 : L.d;
+    const bool bland = noimp >= p.bland_after;
+    int ne = 0, first = n, bj = kIntMax;
+    float bs = -INFINITY;
+    for (int j = tid; j < n; j += kThreads) {
+      const int v = L.vstat[j];
+      const float dj = dcur[j];
+      const bool can_up = v == AT_LOWER || v == FREE;
+      const bool can_dn = v == AT_UPPER || v == FREE;
+      const bool elig = (can_up && dj < -p.opt_tol) || (can_dn && dj > p.opt_tol);
+      const float g = p1 ? 1.f : L.wts[j];
+      const float score = elig ? dj * dj / max_nan(g, p.devex_floor) : -INFINITY;
+      L.sc[j] = score;
+      ne += elig;
+      if (elig && j < first) first = j;
+      if (better(score, j, bs, bj)) { bs = score; bj = j; }
+    }
+    const int nelig = block_sum_int(ne, sm);
+    const int q_b = block_min_int(first, sm);
+    block_argmax_pair(bs, bj, sm);
+    const float best0 = bs;  // max(score0), NaN-propagating
+    const bool found_any = nelig > 0;
+
+    // ---- candidates: the top minor_k scores by repeated argmax (lowest
+    // index first on ties); under Bland only the lowest eligible index
+    const int ncand = bland ? min(1, nelig) : min(K, nelig);
+    int qk = bland ? q_b : bj;
+    for (int k = 0; k < ncand; ++k) {
+      if (k > 0) {
+        float v = -INFINITY;
+        int vj = kIntMax;
+        for (int j = tid; j < n; j += kThreads)
+          if (better(L.sc[j], j, v, vj)) { v = L.sc[j]; vj = j; }
+        qk = block_argmax(v, vj, sm);
+      }
+      if (tid == 0) {
+        sm.cand_ids[k] = qk;
+        L.sc[qk] = -INFINITY;
+      }
+      __syncthreads();
+    }
+    for (int k = tid; k < K; k += kThreads) {
+      const bool valid = k < ncand;
+      const int q = valid ? sm.cand_ids[k] : 0;
+      if (!valid) sm.cand_ids[k] = -1;
+      sm.d_cand[k] = valid ? dcur[q] : 0.f;
+      sm.wts_cand[k] = valid ? L.wts[q] : 1.f;
+      sm.vstat_cand[k] = valid ? L.vstat[q] : FIXED;
+    }
+    __syncthreads();
+
+    // ---- candidate tableau block W[k, i] = (B^-1 a_k)[i] = Binv[i, :] . Aᵀ[q_k, :]
+    // one warp per row of B^-1, eight candidates per pass over the row
+    {
+      const int lane = tid & 31;
+      for (int i = tid >> 5; i < m; i += kWarps) {
+        const float* brow = L.Binv + (size_t)i * m;
+        for (int k0 = 0; k0 < ncand; k0 += 8) {
+          const int kn = min(8, ncand - k0);
+          const float* arow[8];
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk)
+            arow[kk] = L.AT + (size_t)sm.cand_ids[k0 + (kk < kn ? kk : 0)] * m;
+          float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+          for (int j = lane; j < m; j += 32) {
+            const float bv = brow[j];
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk)
+              if (kk < kn) acc[kk] = fmaf(arow[kk][j], bv, acc[kk]);
+          }
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk) {
+            float a = acc[kk];
+            for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(kFull, a, o);
+            if (lane == 0 && kk < kn) L.W[(size_t)(k0 + kk) * m + i] = a;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- minor pivots on the candidates
+    int n_eta = 0;
+    bool stop = false, wexit = false;
+    for (int jm = 0; jm < K && !stop && status == RUNNING && niter < p.max_iter; ++jm) {
+      if (p1) {
+        // candidate reduced costs against the current sigma: -W[k] . sigma
+        const int lane = tid & 31;
+        for (int k = tid >> 5; k < ncand; k += kWarps) {
+          const float* wk = L.W + (size_t)k * m;
+          float acc = 0.f;
+          for (int i = lane; i < m; i += 32)
+            acc = fmaf(wk[i], sigma_of(L.xB[i], L.loB[i], L.hiB[i], ftol), acc);
+          for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
+          if (lane == 0) sm.d_cand[k] = -acc;
+        }
+        __syncthreads();
+      }
+      // ---- lane scan (one thread; at most kMaxK lanes)
+      if (tid == 0) {
+        int fnd = 0, kd = kIntMax, kb = 0, keyb = kIntMax;
+        float bsc = -INFINITY, smx = -INFINITY;
+        for (int k = 0; k < K; ++k) {
+          const int vc = sm.vstat_cand[k], cid = sm.cand_ids[k];
+          const float dc = vc == BASIC ? 0.f : sm.d_cand[k];
+          const bool can_up = vc == AT_LOWER || vc == FREE;
+          const bool can_dn = vc == AT_UPPER || vc == FREE;
+          const bool elig =
+              cid >= 0 && ((can_up && dc < -p.opt_tol) || (can_dn && dc > p.opt_tol));
+          const float g = p1 ? 1.f : sm.wts_cand[k];
+          const float score = elig ? dc * dc / max_nan(g, p.devex_floor) : -INFINITY;
+          if (better(score, k, bsc, kd)) { bsc = score; kd = k; }
+          smx = max_nan(smx, score);
+          const int key = elig ? cid : n;
+          if (key < keyb) { keyb = key; kb = k; }
+          fnd |= elig;
+        }
+        sm.lane_i[0] = fnd;
+        sm.lane_i[1] = kd;
+        sm.lane_i[2] = kb;
+        sm.lane_f[0] = smx;
+      }
+      __syncthreads();
+      // suboptimization exit: the best remaining candidate decayed well below
+      // the major's top score
+      const bool decayed = sm.lane_f[0] < best0 * p.minor_decay;
+      const bool found = sm.lane_i[0] && (!decayed || bland);
+      const int ksel = bland ? sm.lane_i[2] : sm.lane_i[1];
+      const int q = sm.cand_ids[ksel];
+      const int vq = sm.vstat_cand[ksel];
+      const float dq = vq == BASIC ? 0.f : sm.d_cand[ksel];
+      const float gq = max_nan(sm.wts_cand[ksel], 1.f);
+      const float s = dq < 0.f ? 1.f : -1.f;
+      const float* w = L.W + (size_t)ksel * m;
+
+      // ---- ratio test (the megakernel's), with the pre-step statistics
+      float tmin = INFINITY, xbs = 0.f, wmx = 0.f;
+      int nreg = 0;
+      for (int i = tid; i < m; i += kThreads) {
+        const float x = L.xB[i], lb = L.loB[i], ub = L.hiB[i], wi = w[i];
+        const float delta = -s * wi;
+        const bool up = delta > p.pivot_tol, dn = delta < -p.pivot_tol;
+        const bool below = x < lb - ftol, above = x > ub + ftol;
+        const float tgt = up ? (below ? lb : ub) : (dn ? (above ? ub : lb) : 0.f);
+        const bool blockable = ((up && !above) || (dn && !below)) && isfinite(tgt);
+        float ratio = blockable ? (tgt - x) / ((up || dn) ? delta : 1.f) : INFINITY;
+        ratio = max_nan(ratio, 0.f);
+        L.ratio[i] = ratio;
+        L.tgt[i] = tgt;
+        tmin = min_nan(tmin, ratio);
+        nreg += viol_of(x, lb, ub) > p.regress_tol;
+        xbs = max_nan(xbs, fabsf(x));
+        wmx = max_nan(wmx, fabsf(wi));
+      }
+      float t_rows = block_min_nan(tmin, sm);  // barriers publish ratio, tgt
+      const bool feas_m = block_sum_int(nreg, sm) == 0;
+      const float xb_scale = block_max_nan(xbs, sm);
+      const float wabs = block_max_nan(wmx, sm);
+      const float tie_cut = t_rows * 1.0001f + 1e-6f;
+      int r;
+      if (bland) {  // lowest basic column index among the ties
+        int key = n;
+        for (int i = tid; i < m; i += kThreads)
+          if (L.ratio[i] <= tie_cut) key = min(key, L.basis[i]);
+        key = block_min_int(key, sm);
+        int ri = kIntMax;
+        for (int i = tid; i < m; i += kThreads)
+          if ((L.ratio[i] <= tie_cut ? L.basis[i] : n) == key) ri = min(ri, i);
+        r = block_min_int(ri, sm);
+      } else {  // largest |w| among the ties
+        float bw = -INFINITY;
+        int bi = kIntMax;
+        for (int i = tid; i < m; i += kThreads) {
+          const float v = L.ratio[i] <= tie_cut ? fabsf(w[i]) : -INFINITY;
+          if (better(v, i, bw, bi)) { bw = v; bi = i; }
+        }
+        r = block_argmax(bw, bi, sm);
+      }
+
+      // ---- long-step phase-1 override
+      bool ls_on = false;
+      float ls_t = 0.f, ls_tgt = 0.f;
+      if (p.long_step && p1 && !bland && found) {
+        const LongStep ls = long_step(L, p, s, w, sm);
+        if (ls.active) t_rows = ls.cross ? ls.t : INFINITY;
+        if (ls.active && ls.cross) {
+          ls_on = true;
+          r = ls.r;
+          ls_t = ls.t;
+          ls_tgt = ls.tgt;
+        }
+      }
+      const float lo_q = q >= 0 ? L.lo[q] : 0.f, hi_q = q >= 0 ? L.hi[q] : 0.f;
+      const float rng_q = hi_q - lo_q;
+      const bool flip = rng_q <= t_rows;
+      const bool unbounded = !isfinite(min_nan(t_rows, rng_q));
+      const float t = flip ? rng_q : (ls_on ? ls_t : L.ratio[r]);
+      const bool do_pivot = found && !flip && !unbounded;
+      const bool do_flip = found && flip && !unbounded;
+      const float move = t * wabs;
+
+      if (do_pivot) {
+        const int lv = L.basis[r];
+        const float loB_r = L.loB[r], hiB_r = L.hiB[r];
+        const float tgt_r = ls_on ? ls_tgt : L.tgt[r];
+        const int lstat = loB_r == hiB_r ? FIXED : (tgt_r == hiB_r ? AT_UPPER : AT_LOWER);
+        const float enter_base =
+            (vq == AT_LOWER || vq == FIXED) ? lo_q : (vq == AT_UPPER ? hi_q : 0.f);
+        const float x_enter = enter_base + s * t;
+        const float wr = w[r];
+        const float wr_safe = wr == 0.f ? 1.f : wr;
+        const float rd = dq / wr_safe;
+        const float w_lv = max_nan(gq / (wr_safe * wr_safe), 1.f);
+        const bool reset = gq > p.devex_reset;
+        const float c_q = L.c[q];
+        __syncthreads();  // every thread holds the pre-step scalars
+        // snapshots before any state changes: column r of W and of the
+        // ledger, and the eta vector g = (w - e_r) / w_r
+        for (int k = tid; k < ncand; k += kThreads) sm.alpha[k] = L.W[(size_t)k * m + r];
+        for (int k = tid; k < n_eta; k += kThreads) sm.etacol[k] = L.etas[(size_t)k * m + r];
+        for (int i = tid; i < m; i += kThreads) {
+          const float wi = w[i];
+          L.grow[i] = (wi - (i == r ? 1.f : 0.f)) / wr_safe;
+          L.xB[i] = i == r ? x_enter : L.xB[i] + t * (-s * wi);
+        }
+        __syncthreads();
+        // W takes the eta transform; the ledger composes it into its etas
+        // and records it with its leaving row
+        for (size_t e = tid; e < (size_t)ncand * m; e += kThreads)
+          L.W[e] = L.W[e] - sm.alpha[e / m] * L.grow[e % m];
+        for (size_t e = tid; e < (size_t)n_eta * m; e += kThreads)
+          L.etas[e] = L.etas[e] - sm.etacol[e / m] * L.grow[e % m];
+        for (int i = tid; i < m; i += kThreads) L.etas[(size_t)n_eta * m + i] = L.grow[i];
+        // exact candidate reduced costs and Devex weights on the lanes
+        for (int k = tid; k < ncand; k += kThreads) {
+          const int cid = sm.cand_ids[k];
+          float dc2 = sm.d_cand[k] - rd * sm.alpha[k];
+          if (cid == q) dc2 = 0.f;
+          if (cid == lv) dc2 = -rd;
+          sm.d_cand[k] = dc2;
+          const float tc = sm.alpha[k] / wr_safe;
+          float wc = max_nan(sm.wts_cand[k], (tc * tc) * gq);
+          if (cid == lv) wc = w_lv;
+          if (cid == q) wc = 1.f;
+          if (reset) wc = 1.f;
+          sm.wts_cand[k] = wc;
+          sm.vstat_cand[k] = cid == lv ? lstat : (cid == q ? BASIC : sm.vstat_cand[k]);
+        }
+        // stale Devex: only the leaving and entering columns sync to the full
+        // weight vector (a reset clears all of it)
+        if (reset)
+          for (int j = tid; j < n; j += kThreads) L.wts[j] = 1.f;
+        __syncthreads();
+        if (tid == 0) {
+          if (!reset) {
+            L.wts[lv] = w_lv;
+            L.wts[q] = 1.f;
+          }
+          L.basis[r] = q;
+          L.vstat[lv] = lstat;
+          L.vstat[q] = BASIC;
+          L.loB[r] = lo_q;
+          L.hiB[r] = hi_q;
+          L.cB[r] = c_q;
+          sm.eta_rs[n_eta] = r;
+        }
+        __syncthreads();
+      } else if (do_flip) {
+        __syncthreads();  // every thread holds the pre-step scalars
+        for (int i = tid; i < m; i += kThreads) L.xB[i] = L.xB[i] + t * (-s * w[i]);
+        for (int k = tid; k < ncand; k += kThreads)
+          if (sm.cand_ids[k] == q)
+            sm.vstat_cand[k] = sm.vstat_cand[k] == AT_LOWER ? AT_UPPER : AT_LOWER;
+        __syncthreads();
+        if (tid == 0) L.vstat[q] = L.vstat[q] == AT_LOWER ? AT_UPPER : AT_LOWER;
+        __syncthreads();
+      }
+
+      // ---- minor status and progress accounting; an UNBOUNDED claim needs a
+      // fresh state and (phase 2) primal feasibility to the drift floor
+      const bool believe = fresh == 1 && (p1 || feas_m);
+      if (found && unbounded) {
+        if (believe) status = p1 ? NUMERICAL : UNBOUNDED;
+        else wexit = true;
+      }
+      const bool applied = found && !unbounded;
+      if (applied) {
+        fresh = 0;
+        ++niter;
+        ++sref;
+        // phase 1 counts every pivot (the major resets on measured progress);
+        // phase 2 counts steps that are degenerate relative to the iterate
+        const bool degenerate = move <= 1e-7f * (1.f + xb_scale);
+        noimp = (p1 || degenerate) ? noimp + 1 : 0;
+      }
+      if (do_pivot) ++n_eta;
+      if (!found || unbounded || sref >= p.refactor_period || bland) stop = true;
+    }
+
+    // ---- fold the ledger into B^-1: B^-1 -= etasᵀ P, with P the rows of the
+    // old B^-1 at the pivot rows
+    if (n_eta > 0) {
+      for (size_t e = tid; e < (size_t)n_eta * m; e += kThreads)
+        L.P[e] = L.Binv[(size_t)sm.eta_rs[e / m] * m + e % m];
+      __syncthreads();
+      gemm<true, false>(L.etas, m, L.P, m, m, m, n_eta,
+                        [&](int i0, int j0, Patch& acc) {
+                          const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+                          for (int a = 0; a < kPR; ++a)
+                            for (int cc = 0; cc < kPC; ++cc) {
+                              const int gi = i0 + ty * kPR + a, gj = j0 + tx * kPC + cc;
+                              if (gi >= m || gj >= m) continue;
+                              const size_t e = (size_t)gi * m + gj;
+                              L.Binv[e] = L.Binv[e] - acc[a][cc];
+                            }
+                        },
+                        sm);
+      __syncthreads();
+    }
+
+    // ---- phase-1 progress accounting (the noimp reset authority)
+    float part = 0.f;
+    for (int i = tid; i < m; i += kThreads) part += viol_of(L.xB[i], L.loB[i], L.hiB[i]);
+    const float inf_now = block_sum(part, sm);
+    if (p1) {
+      if (inf_now < best_inf - 1e-6f * (1.f + best_inf)) noimp = 0;
+      best_inf = min_nan(best_inf, inf_now);
+    }
+
+    // ---- major terminal claims (only from a fresh state)
+    const bool believe = fresh == 1;
+    if (!found_any && believe && status == RUNNING) status = p1 ? INFEASIBLE : OPTIMAL;
+    force = ((!found_any || wexit) && !believe && status == RUNNING) ? 1 : 0;
+    if (diverged) status = NUMERICAL;
+  }
+  if (status == RUNNING) status = MAX_ITER;
+
+  // ---- exit telemetry for the chunk driver: phase, remaining primal
+  // infeasibility and the claimed objective c.x; the major and refresh
+  // counts for measurement
+  float inf_part = 0.f, obj_b = 0.f, obj_n = 0.f;
+  for (int i = tid; i < m; i += kThreads) {
+    inf_part += viol_of(L.xB[i], L.loB[i], L.hiB[i]);
+    obj_b += L.cB[i] * L.xB[i];
+  }
+  for (int j = tid; j < n; j += kThreads) {
+    const int v = L.vstat[j];
+    obj_n += L.c[j] * (v == BASIC ? 0.f : nonbasic_x(v, L.lo[j], L.hi[j]));
+  }
+  const float infeas = block_sum(inf_part, sm);
+  const float obj = block_sum(obj_b, sm) + block_sum(obj_n, sm);
+  if (tid == 0) {
+    L.mon[0] = status;
+    L.mon[1] = niter;
+    L.mon[2] = phase;
+    L.mon[3] = __float_as_int(infeas);
+    L.mon[4] = __float_as_int(obj);
+    L.mon[5] = n_major;
+    L.mon[6] = n_refresh;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of global scratch: three m x m (the gathered Bᵀ and two Newton
+// temporaries), three minor_k x m (W, the eta ledger, the fold's P), nine
+// m-vectors and five n-vectors.
+size_t streaming_simplex_workspace_floats(int m, int n, int minor_k) {
+  return 3 * (size_t)m * m + 3 * (size_t)minor_k * m + 9 * (size_t)m + 5 * (size_t)n;
+}
+
+// Launch K2 on `stream` for one LP.  AT (n, m), b (m), c/lo/hi (n), all f32;
+// basis0/vstat0/Binv0 all null (cold) or all set (warm: (m) i32, (n) i32,
+// (m, m) f32).  Outputs basis (m) i32, vstat (n) i32, Binv (m, m) f32 and
+// monitor (7) i32 = [status, niter, phase, f32 bits of the primal
+// infeasibility, f32 bits of the objective, majors, refreshes]; ws holds
+// streaming_simplex_workspace_floats(m, n, minor_k) floats.  Returns the
+// cudaError_t of the launch; does not synchronise.
+int streaming_simplex_launch(const float* AT, const float* b, const float* c,
+                             const float* lo, const float* hi, const int* basis0,
+                             const int* vstat0, const float* Binv0, int* basis,
+                             int* vstat, float* Binv, int* monitor, float* ws, int m,
+                             int n, int slack0, int max_iter, int refactor_period,
+                             int newton_sweeps, int bland_after, int minor_k,
+                             float feas_tol, float opt_tol, float pivot_tol,
+                             float devex_floor, float devex_reset, float regress_tol,
+                             float minor_decay, int se_weights, int xb_refine,
+                             int long_step, void* stream) {
+  if (minor_k < 1 || minor_k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  p.m = m;
+  p.n = n;
+  p.slack0 = slack0;
+  p.max_iter = max_iter;
+  p.refactor_period = refactor_period;
+  p.newton_sweeps = newton_sweeps;
+  p.bland_after = bland_after;
+  p.minor_k = minor_k;
+  p.se_weights = se_weights;
+  p.xb_refine = xb_refine;
+  p.long_step = long_step;
+  p.warm = basis0 != nullptr;
+  p.feas_tol = feas_tol;
+  p.opt_tol = opt_tol;
+  p.pivot_tol = pivot_tol;
+  p.devex_floor = devex_floor;
+  p.devex_reset = devex_reset;
+  p.regress_tol = regress_tol;
+  p.minor_decay = minor_decay;
+  stream_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      AT, b, c, lo, hi, basis0, vstat0, Binv0, basis, vstat, Binv, monitor, ws, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* streaming_simplex_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -3,20 +3,22 @@
 The seam between the API layer and the engines, ported from
 `minilp_tpu/engine/driver.py` for the single-LP `Problem.solve()` path:
 
-    presolve → canonicalize → [K1 megakernel → host f64 check
-    → (uncertified OPTIMAL) exact host polish] → certified state → certify()
+    presolve → canonicalize → [K1 megakernel (padded up to (512, 2048))
+    or K2 streaming kernel (Netlib scale) → host f64 check
+    → (uncertified claim) exact host polish] → certified state → certify()
 
 with the f64 torch engine as the last resort.  The device is explicit
 (`SolverOptions.device`): a CUDA device that is not present raises, and
 nothing falls back quietly to the CPU.  Unlike the JAX package, no
 `except Exception` wraps a kernel: a failed build or launch fails the solve.
 The algorithmic fallbacks stay — they act on a result, not on a fault: an
-uncertified OPTIMAL claim goes to the exact polish, any other kernel claim
-to the f64 engine.
+uncertified claim goes to the exact polish, any other kernel claim to the
+f64 engine.
 
 Not ported yet (each raises `NotImplementedError` or routes past it):
 `engine="pdhg"` and the PDHG → simplex crossover (ROADMAP.md Queue 1 item
-9), the streaming kernel K2 (item 7), and the TPU-only f32 mid-size pass.
+9).  The TPU-only f32 mid-size pass is not ported: it works around the
+TPU's emulated f64.
 """
 
 from __future__ import annotations
@@ -371,15 +373,75 @@ def _try_megakernel_solve(can: CanonicalLP, opts: SolverOptions) -> SimplexState
 
 
 def _streaming_eligible(can: CanonicalLP, opts: SolverOptions) -> bool:
-    """The streaming kernel (K2) is not ported yet (ROADMAP.md Queue 1 item
-    7); the JAX package likewise declines it off its TPU under "auto"."""
-    return False
+    if opts.use_streaming == "never":
+        return False
+    if opts.use_streaming == "always":
+        return True
+    if opts.use_streaming != "auto":
+        raise ValueError(f"unknown use_streaming {opts.use_streaming!r}")
+    # auto: a CUDA device, above K1's envelope and within the TPU package's
+    # K2 envelope (padded M in (512, 4096], N <= 32768); the H100's own
+    # thresholds wait for the port's measurements
+    return (_device(opts).type == "cuda"
+            and 512 < can.M <= 4096 and can.N <= 32768)
 
 
-def _f32_midsize_eligible(can: CanonicalLP, opts: SolverOptions) -> bool:
-    """The f32 mid-size pass works around the TPU's emulated f64; the JAX
-    package enables it only there, and the port has no such backend."""
-    return False
+def _f32_opts(opts: SolverOptions) -> SolverOptions:
+    """f32 working copy of `opts` with tolerances loosened to what single
+    precision can actually resolve (the certification step restores exact
+    accuracy; these only steer the iterate)."""
+    return dataclasses.replace(
+        opts,
+        dtype="float32",
+        feas_tol=max(opts.feas_tol, 1e-5),
+        opt_tol=max(opts.opt_tol, 1e-6),
+        pivot_tol=max(opts.pivot_tol, 1e-6),
+    )
+
+
+def streaming_options(can: CanonicalLP, opts: SolverOptions) -> dict:
+    """The options `_try_streaming_solve` gives `solve_streaming` (and
+    `chip_smoke.py` gives `prepare_launch`, to compare K2 with its plain
+    version on the main path's launch)."""
+    f32 = _f32_opts(opts)  # user tolerances, loosened to f32 resolution
+    return dict(
+        device=_device(opts),
+        slack0=can.nv,
+        max_iter=opts.effective_max_iter(can.M, can.N),
+        # the Newton refresh is the kernel's costliest block; the auto floor
+        # of 128 amortizes it (explicit settings respected verbatim)
+        refactor_period=opts.streaming_refactor_period(can.M),
+        feas_tol=f32.feas_tol, opt_tol=f32.opt_tol, pivot_tol=f32.pivot_tol,
+        bland_after=max(opts.bland_after, 400),
+        devex_reset=opts.devex_reset,
+    )
+
+
+def _try_streaming_solve(can: CanonicalLP, opts: SolverOptions) -> SimplexState | None:
+    """Solve one canonical LP through K2 (f32 iterate) on the solve's device.
+
+    Same contract as `_try_megakernel_solve`: the exact f64 state when the
+    discovered basis passes f64 certification; the host polish from the
+    basis for an OPTIMAL, NUMERICAL (the kernel's Newton telltale: the
+    basis outgrew f32) or MAX_ITER claim that failed it — the f32 pass
+    still banked its pivots; None for any other claim (the caller runs the
+    host engines).  A kernel fault raises.
+    """
+    from ..ops.kernels.streaming_simplex import solve_streaming
+
+    res = solve_streaming(can.A, can.b, can.c, can.lo, can.hi,
+                          **streaming_options(can, opts))
+    basis = np.asarray(res.basis)
+    vstat = np.asarray(res.vstat).astype(np.int8)
+    if bool(res.verified):
+        return _state_from_certified_basis(can, basis, vstat, int(res.niter), opts)
+    if int(res.status) in (
+        int(Status.OPTIMAL), int(Status.NUMERICAL), int(Status.MAX_ITER)
+    ):
+        # a basis after many f32 pivots is normally a few exact pivots from
+        # optimal: the polish banks the device's work
+        return _host_polish_from_basis(can, basis, vstat, opts, niter0=int(res.niter))
+    return None
 
 
 def _solve_engine(can: CanonicalLP, opts: SolverOptions) -> SimplexState:
@@ -431,15 +493,24 @@ def solve_problem(problem: "api.Problem") -> "api.Solution":
             handle.certify()
             return api.Solution(handle, user_problem)
         # uncertified polish failure / non-optimal claim → f64 engine below
-    if opts.dtype == "float64" and can.M > 2048 and opts.crossover != "never":
+    if (opts.dtype == "float64" and can.M > 2048 and opts.crossover != "never"
+            and opts.use_streaming != "always"):
         raise NotImplementedError(
             "cold solves above 2048 padded rows start with the PDHG → simplex "
             "crossover, which is not ported to minilp_tpu_torch yet (ROADMAP.md, "
             'Queue 1 item 9); pass SolverOptions(crossover="never") for the '
-            "host sparse engine"
+            'host sparse engine, or use_streaming="always" for K2'
         )
-    if _streaming_eligible(can, opts) or _f32_midsize_eligible(can, opts):
-        raise NotImplementedError("streaming / f32 mid-size paths are not ported")
+    if _streaming_eligible(can, opts):
+        with records.timed() as t:
+            state = _try_streaming_solve(can, opts)
+        if state is not None:
+            _emit_record("cold_solve_streaming", can, state,
+                         int(Status.OPTIMAL), t.wall_s, opts)
+            handle = EngineHandle(can, state, problem, opts)
+            handle.certify()
+            return api.Solution(handle, user_problem)
+        # uncertified non-optimal claim or failed polish → host engines below
     if opts.dtype == "float64" and can.M > 2048:
         # Above the kernels' envelope with the crossover declined: the host
         # sparse engine cold (splu; the f64 torch engine on the CPU as its

@@ -4,8 +4,9 @@ Each kernel source in `minilp_tpu_torch/csrc/` has a plain C interface: one
 `nvcc` call compiles it into a shared library for Hopper (`sm_90a`), which is
 loaded with `ctypes`.  The build happens at first use in a process, into
 `build/minilp_tpu_torch/` at the root of the checkout (listed in
-`.gitignore`), under a name that carries a hash of the source and the flags,
-so an edited source is never served from a stale library.  Nothing here runs
+`.gitignore`), under a name that carries a hash of the source, of every
+header it includes from `csrc/` and of the flags, so an edited source or
+shared header is never served from a stale library.  Nothing here runs
 at import time, and nothing falls back: a missing `nvcc` or a failed compile
 raises.
 """
@@ -16,6 +17,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -60,13 +62,39 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def source_digest(src: pathlib.Path) -> str:
+    """Hash of `src`, of every header it includes by a quoted `#include`
+    that lies beside it (followed transitively, as nvcc resolves them), and
+    of the flags."""
+    h = hashlib.sha256()
+    seen: set[pathlib.Path] = set()
+
+    def add(path: pathlib.Path) -> None:
+        if path in seen:
+            return
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text + b"\0")
+        for inc in _INCLUDE.findall(text):
+            dep = path.parent / inc.decode()
+            if dep.is_file():
+                add(dep)
+
+    add(src)
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def load(name: str) -> Built:
-    """Compile `csrc/<name>.cu` (once per source and flags) and load it."""
+    """Compile `csrc/<name>.cu` (once per source, headers and flags) and
+    load it."""
     if name in _loaded:
         return _loaded[name]
     src = CSRC / f"{name}.cu"
-    text = src.read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = source_digest(src)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     seconds, log = 0.0, ""

@@ -70,9 +70,14 @@ class SolverOptions:
     #: "always" forces it (the kernel's plain torch version on the CPU),
     #: "never" disables.
     use_megakernel: str = "auto"
-    #: Netlib-scale path through the HBM-streaming kernel (the JAX package's
-    #: K2).  Not ported yet (ROADMAP.md Queue 1 item 7): the port routes as
-    #: if it were "never", whatever the value.
+    #: Netlib-scale single-LP routing through K2, the hand-written CUDA
+    #: streaming kernel: "auto" takes padded LPs with M in (512, 4096] and
+    #: N <= 32768 when `device` is a CUDA device (above 2048 rows only with
+    #: `crossover="never"`: the crossover comes first there and is not
+    #: ported), "always" forces it (the kernel's plain torch version on the
+    #: CPU), "never" disables.  As for K1: f64 certification on the host,
+    #: and an uncertified OPTIMAL, NUMERICAL or MAX_ITER claim is polished
+    #: exactly on the host.
     use_streaming: str = "auto"
     #: Mid-size f32-iterate + f64-certify pass through the general engine.
     #: A TPU workaround in the JAX package (which enables it only there);

@@ -28,9 +28,15 @@ def record_stage(name: str, seconds: float) -> None:
     _stages[name] = _stages.get(name, 0.0) + float(seconds)
 
 
+def bump_stage(name: str, count: int = 1) -> None:
+    """Add to an integer counter kept beside the stage walls."""
+    _stages[name] = _stages.get(name, 0) + count
+
+
 def stages() -> dict[str, float]:
-    """Snapshot of the accumulated stage walls (seconds)."""
-    return {k: round(v, 3) for k, v in _stages.items()}
+    """Snapshot of the accumulated stage walls (seconds) and counters."""
+    return {k: (round(v, 3) if isinstance(v, float) else v)
+            for k, v in _stages.items()}
 
 
 def _sync(device: torch.device | None) -> None:

@@ -1,6 +1,6 @@
-"""PyTorch port on the card: the CUDA kernel against its plain version, and
-the main path through it.  Every test here needs a CUDA device and skips
-without one.
+"""PyTorch port on the card: the CUDA kernels (K1, K2) against their plain
+versions, and the main path through each.  Every test here needs a CUDA
+device and skips without one.
 
 This file imports neither jax nor the JAX package, so that it runs on a
 machine with the card and no jax; `tests/conftest.py` imports jax, so run it
@@ -16,7 +16,10 @@ import pytest
 import torch
 
 from minilp_tpu_torch import ComparisonOp, OptimizationDirection, Problem, SolverOptions
+from minilp_tpu_torch.canonical import canonicalize
 from minilp_tpu_torch.ops.kernels import batched_simplex as bs
+from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
+from minilp_tpu_torch.presolve import presolve_problem
 from minilp_tpu_torch.utils.synth import netlib_shaped_problem, random_batch
 
 pytestmark = pytest.mark.cuda
@@ -109,3 +112,64 @@ def test_f64_engine_on_the_card(cuda):
     assert bs.launches == before
     assert sol._engine.certified and ref._engine.certified
     assert abs(sol.objective() - ref.objective()) <= 1e-9 * (1.0 + abs(ref.objective()))
+
+
+# ---- K2, the streaming kernel ------------------------------------------------
+
+def _k2_kernel_and_plain(cuda, A, b, c, lo, hi, slack0, **options):
+    """K2 and its plain version on `solve_streaming`'s first launch, with a
+    short refresh period so that small LPs refresh too."""
+    launch = ss.prepare_launch(A, b, c, lo, hi, device=cuda, slack0=slack0, tile_n=16,
+                               refactor_period=16, max_iter=4000, **options)
+    before = ss.launches
+    outs = [fn(*launch.args, launch.warm, **launch.kw)
+            for fn in (ss.stream_kernel_call, ss.stream_plain)]
+    torch.cuda.synchronize()
+    assert ss.launches == before + 1  # the plain version is no launch
+    res = []
+    for out in outs:
+        mon = out.monitor.cpu().numpy()
+        obj, ver, _ = bs._verify_f64(launch.A[None], launch.b[None], launch.c[None],
+                                     launch.lo[None], launch.hi[None],
+                                     out.basis.cpu().numpy()[None],
+                                     out.vstat.cpu().numpy()[None], mon[:1])
+        res.append((int(mon[0]), float(obj[0]), bool(ver[0])))
+    (st_k, obj_k, ver_k), (st_p, obj_p, ver_p) = res
+    assert (st_k, ver_k) == (st_p, ver_p)
+    assert ver_k
+    assert abs(obj_k - obj_p) <= 1e-9 * (1.0 + abs(obj_p))
+    return outs[0]
+
+
+@pytest.mark.parametrize("long_step", [False, True])
+def test_k2_kernel_matches_plain(cuda, long_step):
+    can = canonicalize(presolve_problem(netlib_shaped_problem(70, 150, 0.08, seed=2))[0])
+    _k2_kernel_and_plain(cuda, can.A, can.b, can.c, can.lo, can.hi, slack0=can.nv,
+                         long_step_min_m=0 if long_step else 2048)
+
+
+def test_k2_kernel_matches_plain_warm_start(cuda):
+    A, b, c, lo, hi = [x[0] for x in random_batch(21, 1, 16, 32)]
+    cold = ss.solve_streaming(A, b, c, lo, hi, device=cuda, tile_n=16)
+    assert cold.verified
+    hi2 = hi.copy()
+    hi2[:32] = np.minimum(hi2[:32], 0.4)
+    warm = (cold.basis, cold.vstat, np.linalg.inv(A[:, cold.basis]))
+    out = _k2_kernel_and_plain(cuda, A, b, c, lo, hi2, slack0=32, warm_state=warm)
+    assert int(out.monitor[1]) > 0
+
+
+def test_main_path_goes_through_k2(cuda, tmp_path, monkeypatch):
+    log = tmp_path / "rec.jsonl"
+    monkeypatch.setenv("MINILP_TPU_LOG", str(log))
+    prob = netlib_shaped_problem(70, 150, 0.08, seed=2)
+    prob.options = SolverOptions(use_streaming="always", use_megakernel="never")
+    cpu = netlib_shaped_problem(70, 150, 0.08, seed=2)
+    cpu.options = SolverOptions(device="cpu", use_megakernel="never")
+    before = ss.launches
+    sol = prob.solve()
+    assert ss.launches == before + 1
+    assert json.loads(log.read_text().splitlines()[-1])["event"] == "cold_solve_streaming"
+    assert sol._engine.certified
+    want = cpu.solve().objective()
+    assert abs(sol.objective() - want) <= 1e-9 * (1.0 + abs(want))
