@@ -9,8 +9,8 @@ nothing of JAX or of the JAX package.  Phases, each of which raises on
 failure (exit code 1; no result line is printed then):
 
 1. the card, its power limit, torch's CUDA version and `nvcc --version`;
-2. the build of every kernel of the single-LP paths from `csrc/` (K1 and
-   K2, one `nvcc` each, started together), with what ptxas reports;
+2. the build of every kernel from `csrc/` (K1, K2 and K3, one `nvcc` each,
+   started together), with what ptxas reports;
 3. K1 against its plain torch version on the card, on the same inputs: a
    batch of 64 random 32×128 LPs, the two `single_lp` instances of
    `bench.py` canonicalized (padded (256, 1024) and (504, 2048)) cold, and
@@ -19,26 +19,45 @@ failure (exit code 1; no result line is printed then):
 3b. K2 against its plain torch version on the card, on the inputs and
    options of the main path's first K2 launch (`prepare_launch` with the
    driver's `streaming_options`): the 25fv47 shape (presolved and
-   canonicalized to (824, 2432), n padded to 2560) cold, run twice by the
+   canonicalized to (824, 2432)) cold, run twice by the
    kernel (identical basis and pivots: no read of uninitialised scratch),
    the same instance in chunks of 2048 pivots against the main path's one
    launch (the warm relaunch), a warm start after a tightened bound, and
    the long step forced on at the `single_lp` 256x1024 instance.
    Required as for K1;
+3c. K3 against its plain torch version on the card, on the same device
+   inputs: a batch of 1024 of `bench.py`'s 32×128 LPs at pack 8, a
+   canonicalized `netlib_shaped_problem` instance replicated over two packs
+   (its workspace in global memory), and one `solve_heterogeneous` bucket
+   as `scheduling.bucket_lps` builds it.  Required as for K1, and two kernel
+   runs give identical output (no read of uninitialised scratch);
 4. the main path through K1, `Problem.solve()` with the default options
    (device "cuda", megakernel "auto"), on the two `single_lp` instances and
    the README example.  Required: K1 launched (its launch count, reset just
    before, grows), the `cold_solve_megakernel` record, a certified solution,
    and an objective within 1e-6 relative of scipy's HiGHS;
 4b. the main path through K2, `Problem.solve()` with the default options on
-   the 25fv47 and fit1p shapes (K2 at (824, 2560) and (632, 2560)), a cold
+   the 25fv47 and fit1p shapes (K2 at (824, 2432) and (632, 2432)), a cold
    and a second solve each.  Required: only the `cold_solve_streaming`
    record, K2 launched, a certified solution within 1e-6 relative of HiGHS.
    The route the port took before K2 (`use_streaming="never"`: the f64
-   torch engine on the card) is timed once on the 25fv47 shape.
+   torch engine on the card) is timed once on the 25fv47 shape;
+5. the batched main path through K3, as `bench.py`'s batched line runs it:
+   `solve_batches_pipelined` on a warm-up batch, then three repetitions
+   over four fresh batches of 1024 LPs (m = 32, nv = 96, pack 8,
+   `structural_cols=96`), with the certified LPs per second (median and
+   spread), the device-only K3 time of one batch and the host stages.
+   Required: K3 launched, every lane certified, and a gap to HiGHS within
+   1e-6 relative on 64 sampled lanes.  Also `solve_batch_certified` (K1 in
+   batch mode) on one batch of 1024 and `solve_heterogeneous` on a mixed
+   list, each certified and checked against HiGHS on sampled LPs.
 
-It prints the kernel table as one JSON line, the card's name and power limit
-as `nvidia-smi` gives them, and, last, `{"ok": true, "device": {...}}`.
+It prints the kernel table as one JSON line (each kernel's launches on its
+main path, its time and its plain version's at the stated shape, and the
+bound of that run: the larger of its bytes over the card's memory rate and
+its floating-point operations, counted from the run's pivots, over the
+f32 peak), the card's name and power limit as `nvidia-smi` gives them, and,
+last, `{"ok": true, "device": {...}}`.
 Without a CUDA device, or without the package beside it, it exits nonzero.
 """
 
@@ -61,6 +80,11 @@ REL_HIGHS = 1e-6    # main path vs HiGHS
 SINGLE_LP = {"256x1024": (250, 760, 0.05), "512x2048": (500, 1530, 0.03)}
 NETLIB = {"25fv47": (821, 1571, 0.008), "fit1p": (627, 1677, 0.0095)}
 DEVICE = "cuda"
+BATCH, BATCH_M, BATCH_NV, PACK = 1024, 32, 96, 8  # bench.py's batched line
+F32_FLOPS = 67e12   # H100 SXM f32 rate outside the tensor cores (data sheet, 700 W)
+HBM_BYTES = 3.35e12  # H100 SXM memory rate, bytes/s (data sheet)
+KERNEL_KW = dict(refactor_period=32, feas_tol=1e-5, opt_tol=1e-6, pivot_tol=1e-6,
+                 bland_after=200)
 
 
 def log(*args) -> None:
@@ -120,6 +144,55 @@ def timed(torch, fn, reps=1):
     return out, start.elapsed_time(stop) / reps
 
 
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the f32 peak."""
+    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def dense_simplex_bound(niter, m, n, refactor_period=32):
+    """K1's and K3's bound on this run's pivots: per pivot of an LP the
+    pivot row (2mn) and FTRAN plus the rank-1 update (4m²), and at least one
+    Newton refresh per `refactor_period` pivots (four m³ products and the
+    recompute: 8m³ + 4mn); bytes: the f32 inputs read once, the int32 rows
+    written once."""
+    niter = np.asarray(niter, dtype=np.float64)
+    flops = float((niter * (2 * m * n + 4 * m * m)
+                   + np.floor(niter / refactor_period) * (8 * m ** 3 + 4 * m * n)).sum())
+    nbytes = niter.size * 4 * ((m * n + m + 3 * n) + (m + n + 2))
+    return bound(flops, nbytes)
+
+
+def streaming_bound(m, n, majors, refreshes, minor_k=16):
+    """K2's bound on this run's counts: per refresh two Newton sweeps (8m³)
+    and the steepest-edge weights (2nm²), per major the pricing over Aᵀ
+    (2mn), y and the candidates' block W = B⁻¹·A_cand (2m²(1 + minor_k));
+    bytes: Aᵀ and the vectors read once, basis, vstat and B⁻¹ written once."""
+    flops = refreshes * (8 * m ** 3 + 2 * n * m * m) + majors * (2 * m * n + 2 * m * m * (1 + minor_k))
+    nbytes = 4 * ((n * m + m + 3 * n) + (m + n + m * m))
+    return bound(flops, nbytes)
+
+
+def assert_agree(tag, kernel, plain):
+    """The kernel's and the plain version's (status, verified, objective)
+    per LP: the same status and `verified` flag, some LP verified, and the
+    certified objectives within REL_KERNEL relative.  Returns the largest
+    absolute and relative objective differences."""
+    (sk, vk, ok_), (sp, vp, op) = ([np.atleast_1d(x) for x in r] for r in (kernel, plain))
+    if not (sk == sp).all():
+        raise AssertionError(f"{tag}: status kernel {sk} vs plain {sp}")
+    if not (vk == vp).all():
+        raise AssertionError(f"{tag}: verified kernel {vk} vs plain {vp}")
+    if not vk.any():
+        raise AssertionError(f"{tag}: no LP verified (status {sk})")
+    err = np.abs(ok_ - op)[vk]
+    rel = err / (1.0 + np.abs(op[vk]))
+    if rel.max() > REL_KERNEL:
+        raise AssertionError(f"{tag}: certified objectives differ by {rel.max():.3e}")
+    return float(err.max()), float(rel.max())
+
+
 class Compare:
     """K1 against its plain version on the same device inputs."""
 
@@ -127,6 +200,7 @@ class Compare:
         self.torch, self.bs = torch, bs
         self.max_abs_err = 0.0
         self.times = {}
+        self.niter = {}  # the kernel's pivots per LP, per case
 
     def run(self, tag, A, b, c, lo, hi, *, slack0, max_iter, warm=None, reps=1):
         torch, bs = self.torch, self.bs
@@ -136,8 +210,7 @@ class Compare:
         warm_t = None
         if warm is not None:
             warm_t = (t(warm[0], np.int32), t(warm[1], np.int32), t(warm[2]))
-        kw = dict(slack0=slack0, max_iter=max_iter, refactor_period=32,
-                  feas_tol=1e-5, opt_tol=1e-6, pivot_tol=1e-6, bland_after=200)
+        kw = dict(slack0=slack0, max_iter=max_iter, **KERNEL_KW)
         m, n = A.shape[1], A.shape[2]
         out_k, ms_k = timed(torch, lambda: bs.simplex_kernel_call(*args, warm_t, **kw), reps)
         out_p, ms_p = timed(torch, lambda: bs.simplex_plain(*args, warm_t, **kw), 1)
@@ -148,35 +221,28 @@ class Compare:
             obj, ver, _x = bs._verify_f64(A, b, c, lo, hi, h[:, :m], h[:, m:m + n], status)
             res.append((h[:, :m], status, h[:, m + n + 1], obj, ver))
         (bk, sk, nk, ok_, vk), (bp, sp, np_, op, vp) = res
-        if not (sk == sp).all():
-            raise AssertionError(f"{tag}: status kernel {sk} vs plain {sp}")
-        if not (vk == vp).all():
-            raise AssertionError(f"{tag}: verified kernel {vk} vs plain {vp}")
-        if not vk.any():
-            raise AssertionError(f"{tag}: no LP verified")
-        err = np.abs(ok_ - op)[vk]
-        rel = err / (1.0 + np.abs(op[vk]))
-        if rel.max() > REL_KERNEL:
-            raise AssertionError(f"{tag}: certified objectives differ by {rel.max():.3e}")
-        self.max_abs_err = max(self.max_abs_err, float(err.max()))
+        err, rel = assert_agree(tag, (sk, vk, ok_), (sp, vp, op))
+        self.max_abs_err = max(self.max_abs_err, err)
         same = int(sum((np.sort(x) == np.sort(y)).all() for x, y in zip(bk, bp)))
         self.times[tag] = (ms_k, ms_p)
+        self.niter[tag] = nk
         log(f"  {tag}: B={A.shape[0]} m={m} n={n} status={np.bincount(sk).tolist()} "
             f"verified={int(vk.sum())}/{len(vk)} identical_bases={same}/{len(vk)} "
             f"pivots kernel={int(nk.sum())} plain={int(np_.sum())} "
-            f"max_rel_obj_diff={rel.max():.3e} kernel_ms={ms_k:.3f} plain_ms={ms_p:.3f}")
+            f"max_rel_obj_diff={rel:.3e} kernel_ms={ms_k:.3f} plain_ms={ms_p:.3f}")
 
 
 class CompareK2:
     """K2 against its plain version on the same device inputs: those of the
     main path's first launch (`prepare_launch` with the driver's options,
-    so n is padded as `Problem.solve()` pads it)."""
+    at the shape `Problem.solve()` launches)."""
 
     def __init__(self, torch, ss, bs, options):
         self.torch, self.ss, self.bs = torch, ss, bs
         self.options = options  # canonical LP -> the driver's K2 options
         self.max_abs_err = 0.0
         self.times = {}
+        self.counts = {}  # (m, n, pivots, majors, refreshes) per case
 
     def result(self, out, launch):
         """(basis, vstat, status, niter, obj, verified, x) of one launch,
@@ -189,17 +255,7 @@ class CompareK2:
         return basis, vstat, int(mon[0]), int(mon[1]), float(obj[0]), bool(ver[0]), x[0]
 
     def check(self, tag, rk, rp):
-        (_bk, _vk, sk, _nk, ok_, vk, _xk), (_bp, _vp, sp, _np, op, vp, _xp) = rk, rp
-        if sk != sp:
-            raise AssertionError(f"{tag}: status kernel {sk} vs plain {sp}")
-        if vk != vp:
-            raise AssertionError(f"{tag}: verified kernel {vk} vs plain {vp}")
-        if not vk:
-            raise AssertionError(f"{tag}: not verified (status {sk})")
-        err = abs(ok_ - op)
-        rel = err / (1.0 + abs(op))
-        if rel > REL_KERNEL:
-            raise AssertionError(f"{tag}: certified objectives differ by {rel:.3e}")
+        err, rel = assert_agree(tag, (rk[2], rk[5], rk[4]), (rp[2], rp[5], rp[4]))
         self.max_abs_err = max(self.max_abs_err, err)
         return rel
 
@@ -229,6 +285,7 @@ class CompareK2:
         same = bool((np.sort(rk[0]) == np.sort(rp[0])).all())
         self.times[tag] = (ms_k, ms_p)
         m, n = launch.A.shape
+        self.counts[tag] = (m, n, rk[3], majors, refreshes)
         log(f"  {tag}: m={m} n={n} max_iter={launch.kw['max_iter']} "
             f"long_step={launch.kw['long_step']} status={rk[2]} verified={rk[5]} "
             f"identical_bases={same} "
@@ -236,6 +293,70 @@ class CompareK2:
             f"obj={rk[4]!r} "
             f"rel_obj_diff={rel:.3e} kernel_ms={ms_k:.3f} plain_ms={ms_p:.3f}")
         return rk
+
+
+class CompareK3:
+    """K3 against its plain version on the same device inputs."""
+
+    def __init__(self, torch, ps):
+        self.torch, self.ps = torch, ps
+        self.max_abs_err = 0.0
+        self.times = {}
+        self.niter = {}  # the kernel's pivots per LP, per case
+
+    def run(self, tag, A, b, c, lo, hi, *, slack0, max_iter=2000, reps=1):
+        torch, ps = self.torch, self.ps
+        B, m, n = A.shape
+        args = ps.upload_packed(A, b, c, lo, hi, pack=PACK, device=DEVICE)
+        kw = dict(pack=PACK, slack0=slack0, max_iter=max_iter, **KERNEL_KW)
+        out_k, ms_k = timed(torch, lambda: ps.packed_kernel_call(*args, **kw), reps)
+        again = ps.packed_kernel_call(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k, again):
+            raise AssertionError(f"{tag}: a second kernel run differs")
+        out_p, ms_p = timed(torch, lambda: ps.packed_plain(*args, **kw), 1)
+        rk, rp = (ps.certify_rows(o.cpu().numpy(), A, b, c, lo, hi) for o in (out_k, out_p))
+        err, rel = assert_agree(tag, (rk.status, rk.verified, rk.obj),
+                                (rp.status, rp.verified, rp.obj))
+        self.max_abs_err = max(self.max_abs_err, err)
+        self.times[tag] = (ms_k, ms_p)
+        self.niter[tag] = rk.niter
+        packs = rk.niter.reshape(-1, PACK)
+        log(f"  {tag}: B={B} m={m} n={n} pack={PACK} status={np.bincount(rk.status).tolist()} "
+            f"verified={int(rk.verified.sum())}/{B} second run identical, "
+            f"pivots kernel={int(rk.niter.sum())} plain={int(rp.niter.sum())} "
+            f"lockstep={packs.max(1).sum() * PACK / max(int(rk.niter.sum()), 1):.3f} "
+            f"max_rel_obj_diff={rel:.3e} kernel_ms={ms_k:.3f} plain_ms={ms_p:.3f}")
+        return rk
+
+
+def highs_gaps(lanes, results):
+    """Largest relative gap of certified objectives to scipy's HiGHS on the
+    given (A, b, c, lo, hi) lanes, each equality-form and minimized."""
+    from scipy.optimize import linprog
+
+    worst = 0.0
+    for (A, b, c, lo, hi), got in zip(lanes, results):
+        bounds = [(lo[j] if np.isfinite(lo[j]) else None,
+                   hi[j] if np.isfinite(hi[j]) else None) for j in range(c.size)]
+        r = linprog(c, A_eq=A, b_eq=b, bounds=bounds, method="highs")
+        if r.status != 0:
+            raise RuntimeError(f"HiGHS failed: {r.message}")
+        worst = max(worst, abs(got - r.fun) / (1.0 + abs(r.fun)))
+    if worst > REL_HIGHS:
+        raise AssertionError(f"certified objectives {worst:.3e} from HiGHS")
+    return worst
+
+
+def mixed_lps(seed):
+    """A heterogeneous list: three sizes of the bench's random LPs."""
+    from minilp_tpu_torch.utils.synth import random_batch
+
+    lps = []
+    for k, (count, m, nv) in enumerate([(40, 16, 48), (30, 24, 72), (50, 32, 96)]):
+        A, b, c, lo, hi = random_batch(seed + k, count, m, nv)
+        lps += [(A[i], b[i], c[i], lo[i], hi[i]) for i in range(count)]
+    return lps
 
 
 def canonical_instance(m, nv, dens, seed):
@@ -306,6 +427,118 @@ def solve_main_path(tag, make, want, event, rec_path, reps=2):
     return walls, stages, sols[0]._engine.iterations()
 
 
+def compare_k3(torch, batch=BATCH):
+    """Phase 3c: K3 against its plain version on the bench's batch, on a
+    replicated canonical instance and on one `solve_heterogeneous` bucket."""
+    from minilp_tpu_torch.ops.kernels import packed_simplex as ps
+    from minilp_tpu_torch.parallel import scheduling
+    from minilp_tpu_torch.utils.synth import random_batch
+
+    log("[3c] K3 (CUDA) vs plain torch on the card")
+    cmp3 = CompareK3(torch, ps)
+    cmp3.run(f"batch{batch}_32x128", *random_batch(0, batch, BATCH_M, BATCH_NV),
+             slack0=BATCH_NV, reps=5)
+    can = canonical_instance(60, 150, 0.06, seed=11)
+    tile = lambda x: np.broadcast_to(x, (2 * PACK,) + x.shape).copy()
+    cmp3.run("netlib_shaped_60x150_replicated",
+             *(tile(x) for x in (can.A, can.b, can.c, can.lo, can.hi)),
+             slack0=can.nv, max_iter=32 * (can.M + can.N) + 1000)
+    _parsed, buckets = scheduling.bucket_lps(mixed_lps(50), pack=PACK)
+    bucket = buckets[0]
+    cmp3.run(f"heterogeneous_bucket_{bucket.M}x{bucket.NV + bucket.M}", *bucket.batch,
+             slack0=bucket.NV)
+    return cmp3
+
+
+def batched_main_path(torch, batch=BATCH):
+    """Phase 5: `solve_batches_pipelined` as bench.py's batched line runs it,
+    then `solve_heterogeneous` on a mixed list (K3's launches counted over
+    both), `solve_batch_certified` through K1, and K3 alone on one
+    device-resident batch.  Returns K3's launches on the batched path."""
+    from minilp_tpu_torch.ops.kernels import batched_simplex as bs
+    from minilp_tpu_torch.ops.kernels import packed_simplex as ps
+    from minilp_tpu_torch.parallel import batched, scheduling
+    from minilp_tpu_torch.utils import profiling
+    from minilp_tpu_torch.utils.synth import random_batch
+
+    log("[5] batched main path through K3: solve_batches_pipelined on the card")
+    run_pipelined = lambda bs_: batched.solve_batches_pipelined(
+        bs_, device=DEVICE, pack=PACK, max_iter=2000, structural_cols=BATCH_NV)
+    batches = [random_batch(1 + k, batch, BATCH_M, BATCH_NV) for k in range(4)]
+    ps.launches = 0  # counts from here on are the batched path's
+    run_pipelined([random_batch(0, batch, BATCH_M, BATCH_NV)])  # warm-up batch
+    walls, rep_stages = [], []
+    for _rep in range(3):
+        profiling.reset_stages()
+        t0 = time.perf_counter()
+        results = run_pipelined(batches)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        rep_stages.append(profiling.stages())
+    if ps.launches != 1 + 3 * len(batches):
+        raise AssertionError(f"pipelined: {ps.launches} K3 launches for "
+                             f"{1 + 3 * len(batches)} batches")
+    lps_s = sorted(len(batches) * batch / w for w in walls)
+    verified = np.concatenate([r.verified for r in results])
+    if not verified.all():
+        raise AssertionError(f"pipelined: {int((~verified).sum())} lanes not certified")
+    niter = np.concatenate([r.niter for r in results])
+    pack_max = niter.reshape(-1, PACK).max(1)
+    sample = np.random.default_rng(0).choice(len(batches) * batch, 64, replace=False)
+    lanes = [tuple(x[i % batch] for x in batches[i // batch]) for i in sample]
+    gap = highs_gaps(lanes, [float(results[i // batch].obj[i % batch]) for i in sample])
+    log(f"  pipelined 4 x {batch} (32x128, pack {PACK}, structural upload): "
+        f"certified LPs/s median={lps_s[1]:.1f} spread={lps_s[0]:.1f}..{lps_s[2]:.1f} "
+        f"walls_s={[round(w, 4) for w in walls]} verified={int(verified.sum())}/{verified.size} "
+        f"status={np.bincount(np.concatenate([r.status for r in results])).tolist()} "
+        f"pivots mean={niter.mean():.2f} pack-max mean={pack_max.mean():.2f} "
+        f"max_rel_gap_highs_64={gap:.3e}")
+    log(f"  stages per repetition (4 batches): {rep_stages}")
+
+    lps = mixed_lps(50)
+    t0 = time.perf_counter()
+    het = scheduling.solve_heterogeneous(lps, pack=PACK, device=DEVICE)
+    wall_het = time.perf_counter() - t0
+    if not all(r.verified for r in het):
+        raise AssertionError("solve_heterogeneous: not all LPs certified")
+    pick = list(range(0, len(lps), 10))
+    gap_het = highs_gaps([lps[i] for i in pick], [het[i].obj for i in pick])
+    k3_launches = ps.launches
+    log(f"  solve_heterogeneous ({len(lps)} LPs in "
+        f"{len(scheduling.bucket_lps(lps, pack=PACK)[1])} buckets): "
+        f"wall_s={wall_het:.4f} max_rel_gap_highs_{len(pick)}={gap_het:.3e}")
+    log(f"  K3 launches on the batched path: {k3_launches}")
+
+    bs.launches = 0
+    t0 = time.perf_counter()
+    cert = batched.solve_batch_certified(*batches[0], device=DEVICE)
+    wall_k1 = time.perf_counter() - t0
+    if not cert.verified.all() or bs.launches != 1:
+        raise AssertionError("solve_batch_certified: not all lanes certified through K1")
+    gap_k1 = highs_gaps([tuple(x[i] for x in batches[0]) for i in range(16)],
+                        [float(o) for o in cert.obj[:16]])
+    log(f"  solve_batch_certified (K1, batch {batch}): wall_s={wall_k1:.4f} "
+        f"pivots={int(cert.niter.sum())} max_rel_gap_highs_16={gap_k1:.3e}")
+
+    # the kernels alone on one device-resident batch, K3 and then K1
+    n = BATCH_M + BATCH_NV
+    dev_args = ps.upload_packed(*batches[0], pack=PACK, device=DEVICE)
+    out, ms = timed(torch, lambda: ps.packed_kernel_call(
+        *dev_args, pack=PACK, slack0=BATCH_NV, max_iter=2000, **KERNEL_KW), 3)
+    niter3 = out[..., -1].cpu().numpy().ravel()
+    dev_args = [torch.tensor(np.asarray(x, dtype=np.float32), device=DEVICE)
+                for x in batches[0]]
+    out, ms1 = timed(torch, lambda: bs.simplex_kernel_call(
+        *dev_args, slack0=BATCH_NV, max_iter=2000, **KERNEL_KW), 3)
+    niter1 = out[:, -1].cpu().numpy()
+    for name, t, it in (("K3", ms, niter3), ("K1", ms1, niter1)):
+        bnd = dense_simplex_bound(it, BATCH_M, n)
+        log(f"  {name} alone on one device-resident batch of {batch}: {t:.3f} ms "
+            f"({batch / t * 1e3:.0f} LPs/s, no host verification), pivots={int(it.sum())}, "
+            f"bound_ms={bnd[0]:.5f} ({bnd[1]})")
+    return k3_launches
+
+
 def main() -> int:
     if not (HERE / "minilp_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: the minilp_tpu_torch package is not beside this "
@@ -341,7 +574,7 @@ def main() -> int:
     log("    nvcc: " + nvcc.splitlines()[-1])
 
     # ---- 2. build every kernel of the paths ---------------------------------
-    build_all(build, ["batched_simplex", "streaming_simplex"])
+    build_all(build, ["batched_simplex", "streaming_simplex", "packed_simplex"])
 
     # ---- 3. K1 against its plain version on the card ------------------------
     log("[3] K1 (CUDA) vs plain torch on the card")
@@ -390,6 +623,9 @@ def main() -> int:
     hi2, Binv0 = tightened_warm(can, cold2[0], cold2[6])
     cmp2.run("25fv47_warm_tightened", can, hi=hi2, warm_state=(cold2[0], cold2[1], Binv0))
     cmp2.run("256x1024_long_step", cans["256x1024"], long_step_min_m=0)
+
+    # ---- 3c. K3 against its plain version on the card -----------------------
+    cmp3 = compare_k3(torch)
 
     # ---- 4. the main path: Problem.solve() through K1 -----------------------
     log("[4] main path through K1: Problem.solve() on the card")
@@ -443,27 +679,29 @@ def main() -> int:
     log(f"  25fv47 without K2 (f64 torch engine on the card): wall_s={walls[0]:.3f} "
         f"pivots={pivots}")
 
+    # ---- 5. the batched main path: solve_batches_pipelined through K3 -------
+    k3_launches = batched_main_path(torch)
+
     ms_k, ms_p = cmp_.times["single_lp_512x2048"]
+    k1_bound = dense_simplex_bound(cmp_.niter["single_lp_512x2048"], 504, 2048)
     ms2_k, ms2_p = cmp2.times["25fv47"]
-    kernels = {"kernels": [{
-        "name": "batched_simplex",
-        "route": "cuda",
-        "source": "minilp_tpu_torch/csrc/batched_simplex.cu",
-        "replaces": "minilp_tpu/ops/kernels/batched_simplex.py:68",
-        "launches": k1_launches,
-        "max_abs_err": cmp_.max_abs_err,
-        "ms": ms_k,
-        "plain_ms": ms_p,
-    }, {
-        "name": "streaming_simplex",
-        "route": "cuda",
-        "source": "minilp_tpu_torch/csrc/streaming_simplex.cu",
-        "replaces": "minilp_tpu/ops/kernels/streaming_simplex.py:134",
-        "launches": k2_launches,
-        "max_abs_err": cmp2.max_abs_err,
-        "ms": ms2_k,
-        "plain_ms": ms2_p,
-    }]}
+    k2_bound = streaming_bound(*cmp2.counts["25fv47"][:2], *cmp2.counts["25fv47"][3:])
+    tag3 = f"batch{BATCH}_32x128"
+    ms3_k, ms3_p = cmp3.times[tag3]
+    k3_bound = dense_simplex_bound(cmp3.niter[tag3], BATCH_M, BATCH_M + BATCH_NV)
+    row = lambda name, tpu_line, launches, cmp, ms, plain_ms, bnd: {
+        "name": name, "route": "cuda", "source": f"minilp_tpu_torch/csrc/{name}.cu",
+        "replaces": f"minilp_tpu/ops/kernels/{name}.py:{tpu_line}",
+        "launches": launches, "max_abs_err": cmp.max_abs_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+        # no single PyTorch call solves an LP
+        "library_ms": None,
+    }
+    kernels = {"kernels": [
+        row("batched_simplex", 68, k1_launches, cmp_, ms_k, ms_p, k1_bound),
+        row("streaming_simplex", 134, k2_launches, cmp2, ms2_k, ms2_p, k2_bound),
+        row("packed_simplex", 60, k3_launches, cmp3, ms3_k, ms3_p, k3_bound),
+    ]}
     log(json.dumps(kernels))
     log(smi_name_power())
     log(json.dumps({"ok": True, "device": {

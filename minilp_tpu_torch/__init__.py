@@ -2,9 +2,11 @@
 
 The same modeling API as `minilp_tpu` (the JAX package, which stays the
 reference), solved with PyTorch on an explicit device.  On a CUDA device the
-single-LP path runs through a hand-written CUDA megakernel
-(`ops/kernels/batched_simplex.py`, source in `csrc/`); on the CPU every
-kernel runs as its plain torch version::
+single-LP path runs through hand-written CUDA kernels
+(`ops/kernels/batched_simplex.py` and `streaming_simplex.py`, sources in
+`csrc/`), and batches of LPs (`parallel/`) through the packed kernel
+(`ops/kernels/packed_simplex.py`); on the CPU every kernel runs as its
+plain torch version::
 
     from minilp_tpu_torch import Problem, OptimizationDirection, ComparisonOp
 

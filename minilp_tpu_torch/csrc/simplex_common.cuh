@@ -1,7 +1,8 @@
-// Block-level helpers shared by the port's simplex kernels (K1 in
-// batched_simplex.cu, K2 in streaming_simplex.cu).
+// Helpers shared by the port's simplex kernels (K1 in batched_simplex.cu,
+// K2 in streaming_simplex.cu, K3 in packed_simplex.cu): the status codes,
+// the argmax order, the NaN rules and, for K1 and K2, block reductions.
 //
-// Both kernels run one LP in one thread block of kThreads threads, with
+// K1 and K2 run one LP in one thread block of kThreads threads, with
 // block-uniform control flow: every loop scalar is the result of a block
 // reduction and so identical in every thread.  The reductions below fold
 // their per-warp partials in warp order in every thread, and each starts with

@@ -150,14 +150,21 @@ def simplex_kernel_call(
 def simplex_plain(
     A, b, c, lo, hi, warm=None, *,
     slack0: int, max_iter: int, refactor_period: int, feas_tol: float,
-    opt_tol: float, pivot_tol: float, bland_after: int,
+    opt_tol: float, pivot_tol: float, bland_after: int, pack: int = 1,
 ) -> torch.Tensor:
     """Plain torch version of the kernel (any device), same inputs and
     output packing as `simplex_kernel_call`.
 
     A line-for-line transcription of the TPU kernel's loop body, batched:
     every LP steps in lockstep and an LP's state stops changing once its own
-    loop condition fails (the semantics of a vmapped while loop)."""
+    loop condition fails (the semantics of a vmapped while loop).
+
+    `pack > 1` is K3's rule (`packed_simplex.packed_plain`): consecutive
+    groups of `pack` LPs share one refresh decision per iteration — any
+    running member's phase-1 → 2 transition, any running member's forced
+    exit check, or the group's largest pivot count (finished members
+    included) a positive multiple of `refactor_period` refreshes every
+    running member.  `pack=1` is K1's per-LP rule."""
     Bsz, m, n = A.shape
     dev, f32 = A.device, torch.float32
     i32 = lambda v: torch.full((Bsz,), int(v), dtype=torch.int32, device=dev)
@@ -210,13 +217,17 @@ def simplex_plain(
             break
         col = lambda v: v.unsqueeze(1)
 
-        # -- refresh decision (transition, periodic, or exit-check)
+        # -- refresh decision (transition, periodic, or exit-check), per
+        #    group of `pack` LPs; a finished LP's state is never read again,
+        #    so only running LPs refresh
         viol_pre = (xB < loB - feas_tol) | (xB > hiB + feas_tol)
-        transition = (phase == 1) & ~viol_pre.any(1)
+        transition = (phase == 1) & ~viol_pre.any(1) & active
         phase_n = torch.where(transition, 2, phase)
+        grp = lambda v: v.view(-1, pack)
+        top = grp(niter).amax(1)
         do_refresh = active & (
-            transition | (force == 1)
-            | ((niter > 0) & (niter % refactor_period == 0)))
+            grp(transition).any(1) | grp((force == 1) & active).any(1)
+            | ((top > 0) & (top % refactor_period == 0))).repeat_interleave(pack)
         Binv_c, xB_c, d_c = Binv, xB, d
         if bool(do_refresh.any()):
             Bmat = A.gather(2, basis.unsqueeze(1).expand(Bsz, m, m))

@@ -1,0 +1,224 @@
+"""K3, the packed simplex kernel: k LPs in lockstep per thread block.
+
+PyTorch port of `minilp_tpu/ops/kernels/packed_simplex.py`.  Each LP runs
+K1's bounded two-phase primal simplex (Dantzig phase 1, Devex phase 2, Bland
+after a stall, a dense f32 B⁻¹ with product-form updates and a Newton
+refresh), cold from the slack basis; a pack of k LPs shares ONE refresh
+decision per iteration, which is what sets K3 apart from K1 in batch mode:
+the pack refreshes when any running member makes its phase-1 → 2
+transition or needs a forced exit check, or when the pack's largest pivot
+count (finished members included) is a positive multiple of
+`refactor_period`.  A refresh also makes every member's state fresh, which
+decides when its terminal claim is believed, so an LP's pivots depend on its
+pack-mates.
+
+The TPU kernel held the k inverses in one block-diagonal (km, km) matrix and
+gathered by one-hot matmuls (Mosaic has no dynamic indexing).  The port keeps
+k separate m×m inverses and integer bases; the off-diagonal blocks were
+exact zeros, so nothing changes except that an inf or NaN in one LP's block
+no longer spreads to its pack-mates through 0·inf.
+
+Three layers, as for K1:
+
+* `packed_kernel_call` — the kernel wrapper.  On a CUDA tensor it launches
+  the hand-written CUDA kernel (`minilp_tpu_torch/csrc/packed_simplex.cu`,
+  replacing the Pallas TPU kernel `_packed_kernel`; one warp per LP, one
+  thread block per pack) and counts the launch in `launches`; on a CPU
+  tensor it runs `packed_plain`.  Nothing else selects between the two, and
+  nothing falls back: a failed build or launch raises.
+* `packed_plain` — the kernel's plain torch version (any device): K1's plain
+  loop body (`batched_simplex.simplex_plain`) with the pack's refresh rule.
+* `solve_batch_packed` — host numpy in, f32 to the device, one kernel call,
+  one device-to-host copy of (basis, vstat, status, niter), then the exact
+  f64 check `_verify_f64` shared with K1.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import build
+from .batched_simplex import BatchResult, _verify_f64, simplex_plain
+
+#: launches of the CUDA kernel in this process (plain-version calls do not
+#: count); `chip_smoke.py` resets it before driving the batched path and
+#: reads it after
+launches = 0
+
+#: one warp per LP in one thread block: at most 1024 threads
+MAX_PACK = 32
+
+_F = ctypes.c_float
+_I = ctypes.c_int
+_P = ctypes.c_void_p
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("packed_simplex").lib
+    # every pointer and the stream as c_void_p: an undeclared argument
+    # would pass as a 32-bit int and cut the pointer
+    lib.packed_simplex_workspace_floats.argtypes = [_I, _I]
+    lib.packed_simplex_workspace_floats.restype = ctypes.c_size_t
+    lib.packed_simplex_uses_global_workspace.argtypes = [_I, _I, _I]
+    lib.packed_simplex_uses_global_workspace.restype = _I
+    lib.packed_simplex_launch.argtypes = [_P] * 7 + [_I] * 7 + [_F] * 3 + [_I, _P]
+    lib.packed_simplex_launch.restype = _I
+    lib.packed_simplex_error_string.argtypes = [_I]
+    lib.packed_simplex_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_inputs(A, b, c, lo, hi, pack):
+    if A.dim() != 3:
+        raise ValueError(f"A must be (P, pack*m, n), got shape {tuple(A.shape)}")
+    if not 1 <= pack <= MAX_PACK:
+        raise ValueError(f"pack must be in [1, {MAX_PACK}] (one warp per LP "
+                         f"in one thread block), got {pack}")
+    P, km, n = A.shape
+    if km % pack != 0:
+        raise ValueError(f"A has {km} rows, not a multiple of pack {pack}")
+    m = km // pack
+    want = {"A": (A, (P, km, n)), "b": (b, (P, pack, m)), "c": (c, (P, pack, n)),
+            "lo": (lo, (P, pack, n)), "hi": (hi, (P, pack, n))}
+    for name, (t, shape) in want.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.device != A.device:
+            raise ValueError(f"{name} is on {t.device}, A on {A.device}")
+        if tuple(t.shape) != shape or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be {shape} torch.float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if m > n:
+        raise ValueError(f"need m <= n, got m={m}, n={n}")
+
+
+def packed_kernel_call(
+    A, b, c, lo, hi, *,
+    pack: int, slack0: int, max_iter: int, refactor_period: int,
+    feas_tol: float, opt_tol: float, pivot_tol: float, bland_after: int,
+) -> torch.Tensor:
+    """Run K3 on P packs of `pack` LPs; returns (P, pack, m + n + 2) int32
+    rows ``[basis | vstat | status | niter]`` on the inputs' device.
+
+    Inputs, as the TPU kernel takes them: A (P, pack·m, n) — the pack's LPs
+    stacked by rows —, b (P, pack, m), c/lo/hi (P, pack, n), all f32 and
+    contiguous on one device.  CUDA tensors launch the kernel on the current
+    stream (no synchronisation); CPU tensors run `packed_plain`.
+    """
+    _check_inputs(A, b, c, lo, hi, pack)
+    kw = dict(pack=pack, slack0=slack0, max_iter=max_iter,
+              refactor_period=refactor_period, feas_tol=feas_tol,
+              opt_tol=opt_tol, pivot_tol=pivot_tol, bland_after=bland_after)
+    if A.device.type == "cpu":
+        return packed_plain(A, b, c, lo, hi, **kw)
+    if A.device.type != "cuda":
+        raise ValueError(f"K3 runs on CUDA (kernel) or CPU (plain), not {A.device}")
+    P, km, n = A.shape
+    m = km // pack
+    lib = _library()
+    out = torch.empty((P, pack, m + n + 2), dtype=torch.int32, device=A.device)
+    # the workspace lives in shared memory where the pack's fits, else here
+    ws_lps = P * pack if lib.packed_simplex_uses_global_workspace(pack, m, n) else 0
+    ws = torch.empty((ws_lps, lib.packed_simplex_workspace_floats(m, n)),
+                     dtype=torch.float32, device=A.device)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = lib.packed_simplex_launch(
+            A.data_ptr(), b.data_ptr(), c.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            out.data_ptr(), ws.data_ptr() if ws_lps else None,
+            P, pack, m, n, slack0, max_iter, refactor_period,
+            feas_tol, opt_tol, pivot_tol, bland_after, stream,
+        )
+    if err != 0:
+        msg = lib.packed_simplex_error_string(err).decode()
+        raise RuntimeError(f"packed_simplex kernel launch failed: {msg} ({err})")
+    global launches
+    launches += 1
+    return out
+
+
+def packed_plain(
+    A, b, c, lo, hi, *,
+    pack: int, slack0: int, max_iter: int, refactor_period: int,
+    feas_tol: float, opt_tol: float, pivot_tol: float, bland_after: int,
+) -> torch.Tensor:
+    """Plain torch version of the kernel (any device), same inputs and
+    output packing as `packed_kernel_call`: every pack in lockstep, each
+    with the pack-wide refresh rule (module docstring)."""
+    P, km, n = A.shape
+    m = km // pack
+    B = P * pack
+    out = simplex_plain(
+        A.reshape(B, m, n), b.reshape(B, m), c.reshape(B, n), lo.reshape(B, n),
+        hi.reshape(B, n), slack0=slack0, max_iter=max_iter,
+        refactor_period=refactor_period, feas_tol=feas_tol, opt_tol=opt_tol,
+        pivot_tol=pivot_tol, bland_after=bland_after, pack=pack)
+    return out.view(P, pack, m + n + 2)
+
+
+def upload_packed(A, b, c, lo, hi, *, pack: int, device) -> list:
+    """Host (B, m, n)-batch arrays → the kernel's f32 inputs on `device`."""
+    A = np.asarray(A)
+    B, m, n = A.shape
+    if B % pack != 0:
+        raise ValueError(f"batch {B} not divisible by pack {pack}")
+    P = B // pack
+    dev = torch.device(device)
+    up = lambda x, shape: torch.tensor(np.asarray(x, dtype=np.float32).reshape(shape),
+                                       device=dev)
+    return [up(A, (P, pack * m, n)), up(b, (P, pack, m)), up(c, (P, pack, n)),
+            up(lo, (P, pack, n)), up(hi, (P, pack, n))]
+
+
+def certify_rows(rows, A, b, c, lo, hi) -> BatchResult:
+    """The exact f64 check of K3's output rows (host (B, m + n + 2) int32,
+    ``[basis | vstat | status | niter]``) against the host batch."""
+    A = np.asarray(A)
+    B, m, n = A.shape
+    host = np.asarray(rows).reshape(B, m + n + 2)
+    basis, vstat = host[:, :m], host[:, m:m + n]
+    status, niter = host[:, m + n], host[:, m + n + 1]
+    obj, verified, x = _verify_f64(A, b, c, lo, hi, basis, vstat, status)
+    return BatchResult(basis=basis, vstat=vstat, status=status, niter=niter,
+                       obj=obj, verified=verified, x=x)
+
+
+def solve_batch_packed(
+    A, b, c, lo, hi,
+    *,
+    device,
+    pack: int = 8,
+    slack0: Optional[int] = None,
+    max_iter: int = 2000,
+    refactor_period: int = 32,
+    feas_tol: float = 1e-5,
+    opt_tol: float = 1e-6,
+    pivot_tol: float = 1e-6,
+    bland_after: int = 200,
+) -> BatchResult:
+    """Solve B canonical LPs in packs of `pack` with one K3 call on `device`
+    (module docstring); the contract of `solve_batch_megakernel`.
+
+    Host arrays A (B, m, n), b (B, m), c/lo/hi (B, n), B a multiple of
+    `pack` (callers pad or pick the pack).  The identity slack block occupies
+    columns [slack0, slack0+m) and forms the initial basis; `slack0=None`
+    means the last m columns.  Returns exact f64 objectives recomputed from
+    the discovered bases plus `verified` flags.
+    """
+    A = np.asarray(A)
+    B, m, n = A.shape
+    if slack0 is None:
+        slack0 = n - m
+    args = upload_packed(A, b, c, lo, hi, pack=pack, device=device)
+    out = packed_kernel_call(
+        *args, pack=pack, slack0=slack0, max_iter=max_iter,
+        refactor_period=refactor_period, feas_tol=feas_tol, opt_tol=opt_tol,
+        pivot_tol=pivot_tol, bland_after=bland_after,
+    )
+    return certify_rows(out.cpu().numpy(), A, b, c, lo, hi)  # the one device-to-host copy

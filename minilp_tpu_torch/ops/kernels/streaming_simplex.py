@@ -3,8 +3,7 @@
 PyTorch port of `minilp_tpu/ops/kernels/streaming_simplex.py`.  K1 (the
 megakernel) keeps a whole LP per thread block and tops out at padded
 (512, 2048); this kernel takes one larger LP (the 25fv47 class: 821×1571,
-canonicalized to 824×2432, launched at n = 2560 after the `tile_n`
-padding) and organises the simplex around one pass over Aᵀ
+canonicalized to 824×2432) and organises the simplex around one pass over Aᵀ
 per MAJOR iteration:
 
 * a major prices every column once against Aᵀ (phase 1: the composite
@@ -683,7 +682,7 @@ def prepare_launch(
     *,
     device,
     slack0: Optional[int] = None,
-    tile_n: int = 512,
+    tile_n: int = 1,
     max_iter: int = 50_000,
     refactor_period: int = 128,
     newton_sweeps: int = 2,
@@ -709,7 +708,8 @@ def prepare_launch(
     block occupies columns [slack0, slack0+m) and forms the initial basis;
     `slack0=None` means the last m columns.  n is padded to a multiple of
     `tile_n` with inert FIXED columns (zero column, lo = hi = 0: FIXED is
-    never eligible to enter).
+    never eligible to enter); the kernel takes any n, so the default pads
+    nothing (the TPU kernel needed tiles of 512).
 
     `warm_state=(basis0 (m,), vstat0 (n,), Binv0 (m, m))` starts from that
     state instead of the slack basis; the inverse is the Newton seed and a

@@ -1,4 +1,4 @@
-"""PyTorch port on the card: the CUDA kernels (K1, K2) against their plain
+"""PyTorch port on the card: the CUDA kernels (K1, K2, K3) against their plain
 versions, and the main path through each.  Every test here needs a CUDA
 device and skips without one.
 
@@ -18,7 +18,9 @@ import torch
 from minilp_tpu_torch import ComparisonOp, OptimizationDirection, Problem, SolverOptions
 from minilp_tpu_torch.canonical import canonicalize
 from minilp_tpu_torch.ops.kernels import batched_simplex as bs
+from minilp_tpu_torch.ops.kernels import packed_simplex as ps
 from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
+from minilp_tpu_torch.parallel import batched
 from minilp_tpu_torch.presolve import presolve_problem
 from minilp_tpu_torch.utils.synth import netlib_shaped_problem, random_batch
 
@@ -173,3 +175,50 @@ def test_main_path_goes_through_k2(cuda, tmp_path, monkeypatch):
     assert sol._engine.certified
     want = cpu.solve().objective()
     assert abs(sol.objective() - want) <= 1e-9 * (1.0 + abs(want))
+
+
+# ---- K3, the packed kernel ----------------------------------------------------
+
+def _k3_kernel_and_plain(cuda, A, b, c, lo, hi, slack0, pack):
+    """K3 twice and its plain version on the same device inputs."""
+    args = ps.upload_packed(A, b, c, lo, hi, pack=pack, device=cuda)
+    kw = dict(pack=pack, slack0=slack0, max_iter=4000, **KW)
+    before = ps.launches
+    outs = [fn(*args, **kw) for fn in (ps.packed_kernel_call, ps.packed_kernel_call,
+                                       ps.packed_plain)]
+    torch.cuda.synchronize()
+    assert ps.launches == before + 2  # the plain version is no launch
+    assert torch.equal(outs[0], outs[1])  # no read of uninitialised scratch
+    got, want = (ps.certify_rows(o.cpu().numpy(), A, b, c, lo, hi) for o in (outs[0], outs[2]))
+    np.testing.assert_array_equal(got.status, want.status)
+    np.testing.assert_array_equal(got.verified, want.verified)
+    assert got.verified.all()
+    assert np.all(np.abs(got.obj - want.obj) <= 1e-9 * (1.0 + np.abs(want.obj)))
+    return got
+
+
+def test_k3_kernel_matches_plain_batch(cuda):
+    A, b, c, lo, hi = random_batch(5, 16, 16, 48)  # two packs of 8
+    _k3_kernel_and_plain(cuda, A, b, c, lo, hi, slack0=48, pack=8)
+
+
+@pytest.mark.parametrize("m,nv", [(30, 60), (60, 150)])
+def test_k3_kernel_matches_plain_replicated_canonical(cuda, m, nv):
+    """A canonical instance replicated over two packs of 4; at 60 x 150 the
+    pack's workspace leaves shared memory for global memory."""
+    can = canonicalize(presolve_problem(netlib_shaped_problem(m, nv, 0.08, seed=2))[0])
+    tile = lambda x: np.broadcast_to(x, (8,) + x.shape).copy()
+    got = _k3_kernel_and_plain(cuda, *(tile(x) for x in (can.A, can.b, can.c, can.lo, can.hi)),
+                               slack0=can.nv, pack=4)
+    assert (got.niter == got.niter[0]).all()  # identical lanes, identical pivots
+
+
+def test_pipelined_goes_through_k3(cuda):
+    batches = [random_batch(40 + k, 16, 12, 36) for k in range(2)]
+    before = ps.launches
+    got = batched.solve_batches_pipelined(batches, device=cuda, pack=8, structural_cols=36)
+    assert ps.launches == before + 2
+    want = batched.solve_batches_pipelined(batches, device="cpu", pack=8)
+    for g, w in zip(got, want):
+        assert g.verified.all()
+        np.testing.assert_allclose(g.obj, w.obj, rtol=1e-9, atol=1e-9)

@@ -222,8 +222,8 @@ def test_build_digest_follows_included_headers(tmp_path):
     assert d1 != d0
     (tmp_path / "unrelated.cuh").write_text("// not included\n")
     assert build.source_digest(src) == d1
-    # both kernels of the port include the shared header
-    for name in ("batched_simplex", "streaming_simplex"):
+    # every kernel of the port includes the shared header
+    for name in ("batched_simplex", "streaming_simplex", "packed_simplex"):
         assert '#include "simplex_common.cuh"' in (build.CSRC / f"{name}.cu").read_text()
 
 
@@ -255,8 +255,8 @@ def test_problem_solve_routes_through_k2(name, tmp_path, monkeypatch):
 
 def test_prepare_launch_is_the_drivers_first_launch():
     """`prepare_launch` with the driver's options gives the launch that
-    `Problem.solve()`'s K2 route makes (n padded to the default tile of 512
-    columns), so a comparison on it runs at the main path's shape."""
+    `Problem.solve()`'s K2 route makes (n unpadded: the default tile is one
+    column), so a comparison on it runs at the main path's shape."""
     from minilp_tpu_torch.canonical import canonicalize
     from minilp_tpu_torch.engine.driver import streaming_options
     from minilp_tpu_torch.options import SolverOptions
@@ -265,7 +265,7 @@ def test_prepare_launch_is_the_drivers_first_launch():
     can = canonicalize(prob)
     opts = streaming_options(can, SolverOptions(device="cpu", **STREAM))
     launch = ss.prepare_launch(can.A, can.b, can.c, can.lo, can.hi, **opts)
-    assert tuple(launch.args[0].shape) == (512, can.M) and launch.A.shape == (can.M, 512)
+    assert tuple(launch.args[0].shape) == (can.N, can.M) and launch.A.shape == (can.M, can.N)
     assert launch.kw["max_iter"] == min(32768, opts["max_iter"])
     out = ss.stream_kernel_call(*launch.args, launch.warm, **launch.kw)
     got = ss.solve_streaming(can.A, can.b, can.c, can.lo, can.hi, **opts)
