@@ -24,7 +24,12 @@ failure (exit code 1; no result line is printed then):
    the same instance in chunks of 2048 pivots against the main path's one
    launch (the warm relaunch), a warm start after a tightened bound, and
    the long step forced on at the `single_lp` 256x1024 instance.
-   Required as for K1;
+   Required as for K1.  K2 is one cooperative grid (one block per SM):
+   on each of these cases, and on every chunk of the 25fv47 chunk loop
+   driven through `stream_kernel_call`, its outputs (basis, vstat, the
+   bits of B⁻¹, the monitor) must equal bit for bit those of the same
+   launch on one block.  `utils/k2_split.py` gives the grid's per-refresh
+   and per-major times at 25fv47;
 3c. K3 against its plain torch version on the card, on the same device
    inputs: a batch of 1024 of `bench.py`'s 32×128 LPs at pack 8, a
    canonicalized `netlib_shaped_problem` instance replicated over two packs
@@ -232,6 +237,22 @@ class Compare:
             f"max_rel_obj_diff={rel:.3e} kernel_ms={ms_k:.3f} plain_ms={ms_p:.3f}")
 
 
+def same_bits(tag, wide, one):
+    """Raise unless two K2 launches' `StreamOut`s are equal bit for bit:
+    basis, vstat, B⁻¹ (as int32) and the monitor; name the first
+    differing index."""
+    import torch
+
+    for name in ("basis", "vstat", "Binv", "monitor"):
+        a, b = getattr(wide, name), getattr(one, name)
+        a, b = (x.view(torch.int32).reshape(-1) for x in (a, b))
+        diff = torch.nonzero(a != b)
+        if diff.numel():
+            i = int(diff[0])
+            raise AssertionError(f"{tag}: wide and one-block K2 differ in {name} "
+                                 f"at flat index {i} ({int(a[i])} vs {int(b[i])})")
+
+
 class CompareK2:
     """K2 against its plain version on the same device inputs: those of the
     main path's first launch (`prepare_launch` with the driver's options,
@@ -267,10 +288,15 @@ class CompareK2:
         launch = ss.prepare_launch(
             can.A, can.b, can.c, can.lo, can.hi if hi is None else hi,
             warm_state=warm_state, **dict(self.options(can), **over))
-        call = lambda fn: lambda: fn(*launch.args, launch.warm, **launch.kw)
+        call = lambda fn, **kw: lambda: fn(*launch.args, launch.warm, **launch.kw, **kw)
         out_k, ms_k = timed(torch, call(ss.stream_kernel_call))
         rk = self.result(out_k, launch)
         majors, refreshes = out_k.monitor[5:7].tolist()
+        one, ms_one = timed(torch, call(ss.stream_kernel_call, blocks=1))
+        same_bits(tag, out_k, one)
+        m, n = launch.A.shape
+        log(f"  {tag}: wide grid of {ss.default_blocks(DEVICE, m, n)} blocks and one block "
+            f"bit-identical (basis, vstat, B⁻¹, monitor); one_block_ms={ms_one:.3f}")
         if repeat:
             again, ms_k2 = timed(torch, call(ss.stream_kernel_call))
             ra = self.result(again, launch)
@@ -284,7 +310,6 @@ class CompareK2:
         rel = self.check(tag, rk, rp)
         same = bool((np.sort(rk[0]) == np.sort(rp[0])).all())
         self.times[tag] = (ms_k, ms_p)
-        m, n = launch.A.shape
         self.counts[tag] = (m, n, rk[3], majors, refreshes)
         log(f"  {tag}: m={m} n={n} max_iter={launch.kw['max_iter']} "
             f"long_step={launch.kw['long_step']} status={rk[2]} verified={rk[5]} "
@@ -293,6 +318,40 @@ class CompareK2:
             f"obj={rk[4]!r} "
             f"rel_obj_diff={rel:.3e} kernel_ms={ms_k:.3f} plain_ms={ms_p:.3f}")
         return rk
+
+
+def chunked_wide_vs_one_block(torch, ss, can, options):
+    """The 25fv47 chunk loop as `solve_streaming` makes it (chunks of 2048
+    pivots, each relaunched warm from the last launch's basis, vstat and
+    B⁻¹ until the status is no longer MAX_ITER), through
+    `stream_kernel_call` once on one block and once on the default grid:
+    every chunk's outputs bit-identical.  Returns the chunks' pivots."""
+    from minilp_tpu_torch.status import Status
+
+    launch = ss.prepare_launch(can.A, can.b, can.c, can.lo, can.hi,
+                               **dict(options, chunk_iters=2048))
+    runs, ms = {}, {}
+    for blocks in (1, None):
+        outs, warm = [], launch.warm
+        t0 = time.perf_counter()
+        for _chunk in range(-(-launch.max_iter // launch.kw["max_iter"])):
+            out = ss.stream_kernel_call(*launch.args, warm, blocks=blocks, **launch.kw)
+            outs.append(out)
+            if int(out.monitor[0]) != int(Status.MAX_ITER):
+                break
+            warm = (out.basis, out.vstat, out.Binv)
+        torch.cuda.synchronize()
+        runs[blocks], ms[blocks] = outs, (time.perf_counter() - t0) * 1e3
+    if len(runs[1]) != len(runs[None]):
+        raise AssertionError(f"25fv47 chunked: {len(runs[None])} wide chunks, "
+                             f"{len(runs[1])} on one block")
+    for k, (wide, one) in enumerate(zip(runs[None], runs[1])):
+        same_bits(f"25fv47 chunk {k}", wide, one)
+    pivots = [int(o.monitor[1]) for o in runs[None]]
+    log(f"  25fv47 chunks of 2048 through stream_kernel_call: {len(pivots)} chunks, "
+        f"pivots {pivots}, every chunk bit-identical on the grid and on one block; "
+        f"wall_ms grid={ms[None]:.1f} one_block={ms[1]:.1f}")
+    return pivots
 
 
 class CompareK3:
@@ -555,6 +614,7 @@ def main() -> int:
     from minilp_tpu_torch.ops.kernels import batched_simplex as bs, build
     from minilp_tpu_torch.engine.driver import streaming_options
     from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
+    from minilp_tpu_torch.utils import k2_split
     from minilp_tpu_torch.utils.synth import netlib_shaped_problem, random_batch
 
     if pathlib.Path(minilp_tpu_torch.__file__).resolve().parent != HERE / "minilp_tpu_torch":
@@ -623,6 +683,11 @@ def main() -> int:
     hi2, Binv0 = tightened_warm(can, cold2[0], cold2[6])
     cmp2.run("25fv47_warm_tightened", can, hi=hi2, warm_state=(cold2[0], cold2[1], Binv0))
     cmp2.run("256x1024_long_step", cans["256x1024"], long_step_min_m=0)
+    chunked_wide_vs_one_block(torch, ss, can, k2_options(can))
+    k2s = k2_split.split("25fv47")
+    log(f"  K2 grid: G={k2s['blocks']} blocks on {k2s['sm_count']} SMs; k2_split at "
+        f"25fv47: refresh_ms={k2s['refresh_ms']:.3f} major_ms={k2s['major_ms']:.4f} "
+        f"default run {k2s['default']}")
 
     # ---- 3c. K3 against its plain version on the card -----------------------
     cmp3 = compare_k3(torch)

@@ -142,12 +142,18 @@ __device__ int block_argmax(float v, int idx, S& sm) {
 // Pointers to data the kernel writes carry no __restrict__: the read-only
 // (non-coherent) cache path must never serve them.
 
+// A helper below run by `size` blocks together takes the share of block
+// `rank` (K2's grid phases); the default (0, 1) is the whole job in one block.
+// Every output keeps one fixed-order sum whatever the share, so the results do
+// not depend on (rank, size).
+
 // f(i, sum_j M[i, j] x[j]) for each row i < rows: one warp per row, lanes
 // stride the row (coalesced), fixed-order shuffle sum; lane 0 calls f.
 template <typename F>
-__device__ void matvec(const float* M, const float* x, int rows, int cols, F f) {
+__device__ void matvec(const float* M, const float* x, int rows, int cols, F f,
+                       int rank = 0, int size = 1) {
   const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x >> 5; i < rows; i += kWarps) {
+  for (int i = rank * kWarps + (threadIdx.x >> 5); i < rows; i += size * kWarps) {
     const float* row = M + (size_t)i * cols;
     float acc = 0.f;
     for (int j = lane; j < cols; j += 32) acc = fmaf(row[j], x[j], acc);
@@ -160,13 +166,15 @@ __device__ void matvec(const float* M, const float* x, int rows, int cols, F f) 
 // (neighbouring threads read neighbouring addresses), four columns in flight
 // per thread, each summed over i in order.
 template <typename F>
-__device__ void colsums(const float* y, const float* M, int rows, int cols, F f) {
-  for (int j0 = threadIdx.x; j0 < cols; j0 += 4 * kThreads) {
+__device__ void colsums(const float* y, const float* M, int rows, int cols, F f,
+                        int rank = 0, int size = 1) {
+  const int threads = size * kThreads;
+  for (int j0 = rank * kThreads + threadIdx.x; j0 < cols; j0 += 4 * threads) {
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     int jj[4];
     bool ok[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) { jj[k] = j0 + k * kThreads; ok[k] = jj[k] < cols; }
+    for (int k = 0; k < 4; ++k) { jj[k] = j0 + k * threads; ok[k] = jj[k] < cols; }
 #pragma unroll 4
     for (int i = 0; i < rows; ++i) {
       const float yi = y[i];

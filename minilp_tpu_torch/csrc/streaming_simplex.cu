@@ -31,19 +31,31 @@
 // and the basis rows are read by index), its DMA double buffers, and the
 // candidate lanes past the selected count (inert on the TPU too, skipped).
 //
-// What bounds it on an H100, at the 25fv47 shape (m ~ 824, n ~ 2.5k): one LP
-// is one block on one SM.  Aᵀ (8 MB) and B^-1 (2.7 MB) cannot live in the
-// SM's 227 KB of shared memory, so they stay in global memory and, with the
-// refresh scratch (3 m^2 floats, 8 MB), resident in the 50 MB L2.  Shared
-// memory holds the reduction scratch, the double-buffered 128 x 16 GEMM
-// slabs and the candidate lanes (38 KB).  A major reads Aᵀ once (pricing) plus B^-1 once
-// or twice (y, and W), and the fold reads and writes B^-1: per-SM L2
-// bandwidth bounds it.  The refresh is m^3-class work on one SM's FP32 units:
-// two Newton sweeps (4 products, 4.5 GFLOP at m = 824) and the steepest-edge
-// weights (an n x m x m product, 3.5 GFLOP); it dominates.  This first design
-// keeps one persistent block with block-uniform control flow (every loop
-// scalar comes from a block reduction); spreading the refresh over many SMs
-// is the next step.
+// What bounds it on an H100, at the 25fv47 shape (m ~ 824, n ~ 2.4k): Aᵀ
+// (8 MB) and B^-1 (2.7 MB) cannot live in an SM's 227 KB of shared memory, so
+// they stay in global memory and, with the refresh scratch (3 m^2 floats,
+// 8 MB), resident in the 50 MB L2.  Shared memory holds the reduction
+// scratch, the double-buffered 128 x 16 GEMM slabs and the candidate lanes
+// (38 KB).
+//
+// One cooperative grid of G blocks (one per SM) runs one LP.  Block 0, the
+// leader, runs the whole loop with block-uniform control flow (every loop
+// scalar comes from a block reduction), exactly as one block would.  Blocks
+// 1..G-1 are workers: they sleep on a command word in the workspace and join
+// only the m^3-class phases, the Newton refresh (two sweeps: 4 m x m
+// products, 4.5 GFLOP at m = 824) and the vector recompute (x_B, y, d and the
+// steepest-edge weights, an n x m x m product of 3.5 GFLOP).  Those phases
+// hand out output tiles, rows and columns over the grid with grid barriers
+// between dependent steps; every output keeps the fma chain it has on one
+// block, so the results are bit-identical for every G.  The refresh is then
+// bounded by the largest share of one block: the steepest-edge product gives
+// each block whole 128-row tiles (7 tiles of 128 x 128 at 25fv47, 19 row
+// tiles in all), since each weight sums its squares across the column tiles
+// of its row tile in order.  The majors stay on the leader: a major reads
+// Aᵀ once (pricing) plus B^-1 once or twice (y, and W), and the fold reads
+// and writes B^-1, so one SM's share of L2 bandwidth bounds them, with A
+// dense though it is about 1% full.  Spreading the majors over the grid,
+// with A sparse in pricing and W, is the next step.
 
 #include "simplex_common.cuh"
 
@@ -79,7 +91,65 @@ struct Smem {
   float etacol[kMaxK];  // column r of the eta ledger
   int lane_i[3];        // lane scan: found, k_devex, k_bland
   float lane_f[1];      // lane scan: max candidate score
+  int cmd;              // a worker's current command
 };
+
+// ---- the grid: the leader's commands and the grid barrier ------------------
+constexpr int kMaxGrid = 1024;  // blocks a launch may have
+constexpr unsigned kRecompute = 1, kRefresh = 2, kExit = 3;
+
+// Global-memory control block at the end of the workspace.  The launch
+// zeroes the four words; the leader posts a command by writing `cmd` and
+// then releasing `epoch` + 1, and a worker acquires the epoch it expects.
+struct Ctl {
+  unsigned cmd, epoch;  // the leader's command and its sequence number
+  unsigned count, gen;  // grid barrier: arrivals, and the generation
+  float tell[kMaxGrid]; // each block's Newton telltale
+};
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Every block of the grid waits here until all have arrived; the writes of
+// each block before it are visible to every block after it.  Thread 0 of
+// each block arrives and waits, between two block barriers and two fences
+// (the pattern of cooperative_groups' grid sync), with a short sleep in the
+// wait.  On one block it is a block barrier.
+__device__ void grid_sync(Ctl* ctl) {
+  __syncthreads();
+  if (gridDim.x == 1) return;
+  if (threadIdx.x == 0) {
+    const unsigned g = ld_acquire(&ctl->gen);
+    __threadfence();
+    if (atomicAdd(&ctl->count, 1u) == gridDim.x - 1) {
+      atomicExch(&ctl->count, 0u);
+      st_release(&ctl->gen, g + 1);
+    } else {
+      while (ld_acquire(&ctl->gen) == g) __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The leader posts command `cmd` (its writes so far become visible to the
+// worker that acquires it); `epoch` counts the posts, uniform in the block.
+__device__ void post(Ctl* ctl, unsigned& epoch, unsigned cmd) {
+  ++epoch;
+  __syncthreads();
+  if (threadIdx.x == 0 && gridDim.x > 1) {
+    __threadfence();
+    ctl->cmd = cmd;
+    st_release(&ctl->epoch, epoch);
+  }
+}
 
 // One LP's global-memory state (the TPU kernel's VMEM scratch and outputs).
 struct Lp {
@@ -101,15 +171,19 @@ struct Lp {
 // flight while the current one is multiplied.  epi(i0, j0, acc) runs in
 // every thread once per output tile, with the thread's patch at rows
 // i0 + 4 ty + a and columns j0 + 8 tx + c (ty = tid / 16, tx = tid % 16);
-// entries outside M x N hold zeros and epi skips them.
+// entries outside M x N hold zeros and epi skips them.  Over a grid, block
+// `rank` of `size` takes the work units rank, rank + size, ...: single tiles,
+// or with `row_units` whole row tiles, their column tiles in order.
 template <bool kAT, bool kBT, class Epi>
 __device__ void gemm(const float* A, int lda, const float* B, int ldb, int M, int N,
-                     int K, Epi epi, Smem& sm) {
+                     int K, Epi epi, Smem& sm, int rank = 0, int size = 1,
+                     bool row_units = false) {
   constexpr int kPer = kTM * kTK / kThreads;  // slab elements per thread and operand
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int tiles_n = (N + kTN - 1) / kTN;
   const int tiles = ((M + kTM - 1) / kTM) * tiles_n;
   const int slabs = (K + kTK - 1) / kTK;
+  const int per = row_units ? tiles_n : 1;  // tiles in a work unit
   float ra[kPer], rb[kPer];
   // element e of a slab: (row, k) of A and (k, col) of B, in load order
   auto a_at = [&](int e, int& r, int& k) {
@@ -120,7 +194,7 @@ __device__ void gemm(const float* A, int lda, const float* B, int ldb, int M, in
     k = kBT ? e % kTK : e / kTN;
     cc = kBT ? e / kTK : e % kTN;
   };
-  for (int t = 0; t < tiles; ++t) {
+  for (int t = rank * per; t < tiles; t += (t + 1) % per == 0 ? (size - 1) * per + 1 : 1) {
     const int i0 = (t / tiles_n) * kTM, j0 = (t % tiles_n) * kTN;
     auto fetch = [&](int sl) {
       const int k0 = sl * kTK;
@@ -183,13 +257,15 @@ __device__ void gemm(const float* A, int lda, const float* B, int ldb, int M, in
 // rows given by pointer (row(i)) and the rows with y[i] == 0 skipped: on
 // finite data they add nothing, and the skip is uniform across the block.
 template <class Row, class F>
-__device__ void colsums_rows(const float* y, Row row, int rows, int cols, F f) {
-  for (int j0 = threadIdx.x; j0 < cols; j0 += 4 * kThreads) {
+__device__ void colsums_rows(const float* y, Row row, int rows, int cols, F f, int rank,
+                             int size) {
+  const int threads = size * kThreads;
+  for (int j0 = rank * kThreads + threadIdx.x; j0 < cols; j0 += 4 * threads) {
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     int jj[4];
     bool ok[4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) { jj[k] = j0 + k * kThreads; ok[k] = jj[k] < cols; }
+    for (int k = 0; k < 4; ++k) { jj[k] = j0 + k * threads; ok[k] = jj[k] < cols; }
     for (int i = 0; i < rows; ++i) {
       const float yi = y[i];
       if (yi == 0.f) continue;
@@ -213,34 +289,42 @@ __device__ __forceinline__ float viol_of(float x, float lb, float ub) {
 }
 
 // x_B (with one refinement step), the reduced costs d and the projected
-// steepest-edge weights from B^-1 and the statuses (recompute_vectors).
-__device__ void recompute_vectors(const Lp& L, const Params& p, Smem& sm) {
-  const int m = p.m, n = p.n, tid = threadIdx.x;
-  for (int j = tid; j < n; j += kThreads) L.xn[j] = nonbasic_x(L.vstat[j], L.lo[j], L.hi[j]);
-  __syncthreads();
+// steepest-edge weights from B^-1 and the statuses (recompute_vectors), run by
+// every block of the grid: each step hands out columns, rows or row tiles,
+// with a grid barrier before each step that reads what the last one wrote.
+// Not inlined, nor is `refresh`: inlined into the kernel, the grid phases
+// made ptxas spill in the leader's major loop (1552 B of spill stores, a
+// major 13% slower); called, they are allocated on their own.
+__device__ __noinline__ void recompute_vectors(const Lp& L, const Params& p, Smem& sm, Ctl* ctl) {
+  const int m = p.m, n = p.n, rank = blockIdx.x, size = gridDim.x;
+  const int gtid = rank * kThreads + threadIdx.x, threads = size * kThreads;
+  for (int j = gtid; j < n; j += threads) L.xn[j] = nonbasic_x(L.vstat[j], L.lo[j], L.hi[j]);
+  grid_sync(ctl);
   // b_eff = b - A x_N = b - sum_j x_N[j] Aᵀ[j, :]
   colsums_rows(L.xn, [&](int j) { return L.AT + (size_t)j * m; }, n, m,
-               [&](int k, float acc) { L.beff[k] = L.b[k] - acc; });
-  __syncthreads();
-  matvec(L.Binv, L.beff, m, m, [&](int i, float acc) { L.xB[i] = acc; });
-  __syncthreads();
+               [&](int k, float acc) { L.beff[k] = L.b[k] - acc; }, rank, size);
+  grid_sync(ctl);
+  matvec(L.Binv, L.beff, m, m, [&](int i, float acc) { L.xB[i] = acc; }, rank, size);
+  grid_sync(ctl);
   if (p.xb_refine) {
     // r = b_eff - B x_B (B x_B = sum_i x_B[i] Aᵀ[basis[i], :]); x_B += B^-1 r
     colsums_rows(L.xB, [&](int i) { return L.AT + (size_t)L.basis[i] * m; }, m, m,
-                 [&](int k, float acc) { L.beff[k] = L.beff[k] - acc; });
-    __syncthreads();
-    matvec(L.Binv, L.beff, m, m, [&](int i, float acc) { L.xB[i] = L.xB[i] + acc; });
-    __syncthreads();
+                 [&](int k, float acc) { L.beff[k] = L.beff[k] - acc; }, rank, size);
+    grid_sync(ctl);
+    matvec(L.Binv, L.beff, m, m, [&](int i, float acc) { L.xB[i] = L.xB[i] + acc; },
+           rank, size);
+    grid_sync(ctl);
   }
-  colsums(L.cB, L.Binv, m, m, [&](int j, float acc) { L.y[j] = acc; });
-  __syncthreads();
+  colsums(L.cB, L.Binv, m, m, [&](int j, float acc) { L.y[j] = acc; }, rank, size);
+  grid_sync(ctl);
   matvec(L.AT, L.y, n, m, [&](int j, float acc) {
     L.d[j] = L.vstat[j] == BASIC ? 0.f : L.c[j] - acc;
-  });
+  }, rank, size);
   if (p.se_weights) {
     // gamma_j = 1 + |B^-1 a_j|^2: row sums of squares of Aᵀ B^-ᵀ, one
     // output row tile at a time (its column tiles run in order, and each
-    // half-warp shares the running sums of its four rows)
+    // half-warp shares the running sums of its four rows); a block takes
+    // whole row tiles, so each sum keeps its order
     float g[kPR] = {0.f, 0.f, 0.f, 0.f};
     gemm<false, true>(L.AT, m, L.Binv, m, n, m, m,
                       [&](int i0, int j0, Patch& acc) {
@@ -257,20 +341,21 @@ __device__ void recompute_vectors(const Lp& L, const Params& p, Smem& sm) {
                           if (j0 + kTN >= m && tx == 0 && i < n) L.wts[i] = 1.f + g[a];
                         }
                       },
-                      sm);
+                      sm, rank, size, true);
   }
-  __syncthreads();
+  grid_sync(ctl);
 }
 
 // `newton_sweeps` sweeps X <- 2X - (X B) X with B gathered from Aᵀ by basis
-// index (once for all sweeps); returns |I - X B|_inf of the last sweep
-// (NaN-propagating: a NaN telltale does not read as divergence, as on the TPU).
-__device__ float newton_refresh(const Lp& L, const Params& p, Smem& sm) {
-  const int m = p.m;
+// index (once for all sweeps), run by every block of the grid; each block
+// leaves its share of |I - X B|_inf of the last sweep in ctl->tell.
+__device__ void newton_refresh(const Lp& L, const Params& p, Smem& sm, Ctl* ctl) {
+  const int m = p.m, rank = blockIdx.x, size = gridDim.x;
   const size_t mm = (size_t)m * m;
-  for (size_t e = threadIdx.x; e < mm; e += kThreads)
+  const size_t gtid = (size_t)rank * kThreads + threadIdx.x, threads = (size_t)size * kThreads;
+  for (size_t e = gtid; e < mm; e += threads)
     L.BT[e] = L.AT[(size_t)L.basis[e / m] * m + e % m];  // Bᵀ row i = column basis[i]
-  __syncthreads();
+  grid_sync(ctl);
   float tmax = 0.f;
   for (int s = 0; s < p.newton_sweeps; ++s) {
     tmax = 0.f;
@@ -286,8 +371,8 @@ __device__ float newton_refresh(const Lp& L, const Params& p, Smem& sm) {
                             tmax = max_nan(tmax, fabsf((gi == gj ? 1.f : 0.f) - acc[a][cc]));
                           }
                       },
-                      sm);
-    __syncthreads();
+                      sm, rank, size);
+    grid_sync(ctl);
     // X' = 2X - H X
     gemm<false, false>(L.H, m, L.Binv, m, m, m, m,
                        [&](int i0, int j0, Patch& acc) {
@@ -300,12 +385,42 @@ __device__ float newton_refresh(const Lp& L, const Params& p, Smem& sm) {
                              L.Xn[e] = 2.f * L.Binv[e] - acc[a][cc];
                            }
                        },
-                       sm);
-    __syncthreads();
-    for (size_t e = threadIdx.x; e < mm; e += kThreads) L.Binv[e] = L.Xn[e];
-    __syncthreads();
+                       sm, rank, size);
+    grid_sync(ctl);
+    for (size_t e = gtid; e < mm; e += threads) L.Binv[e] = L.Xn[e];
+    grid_sync(ctl);
   }
-  return block_max_nan(tmax, sm);
+  tmax = block_max_nan(tmax, sm);
+  if (threadIdx.x == 0) ctl->tell[rank] = tmax;
+}
+
+// The refresh as one grid phase: the Newton sweeps, then the vectors.
+// Returns the telltale |I - X B|_inf of the last sweep, the max of the
+// blocks' shares (NaN-propagating, so independent of the order: a NaN
+// telltale does not read as divergence, as on the TPU).
+__device__ __noinline__ float refresh(const Lp& L, const Params& p, Smem& sm, Ctl* ctl) {
+  newton_refresh(L, p, sm, ctl);
+  recompute_vectors(L, p, sm, ctl);  // ends on a grid barrier
+  float tell = ctl->tell[0];
+  for (int r = 1; r < (int)gridDim.x; ++r) tell = max_nan(tell, ctl->tell[r]);
+  return tell;
+}
+
+// A worker block (1..G-1): sleep until the leader posts, run its share of
+// the phase, and wait again; return on kExit.  The sleep keeps the waiting
+// blocks' polls (one load a microsecond each) off the leader's L2 bandwidth.
+__device__ void worker(const Lp& L, const Params& p, Smem& sm, Ctl* ctl) {
+  for (unsigned epoch = 1;; ++epoch) {
+    if (threadIdx.x == 0) {
+      while (ld_acquire(&ctl->epoch) != epoch) __nanosleep(1000);
+      sm.cmd = (int)ld_acquire(&ctl->cmd);
+    }
+    __syncthreads();
+    const int cmd = sm.cmd;
+    if (cmd == (int)kExit) return;
+    if (cmd == (int)kRefresh) refresh(L, p, sm, ctl);
+    else recompute_vectors(L, p, sm, ctl);
+  }
 }
 
 // Phase-1 long step: walk the convex piecewise-linear phase-1 objective along
@@ -451,6 +566,13 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
   L.wts = L.d1 + n;
   L.sc = L.wts + n;
   L.xn = L.sc + n;
+  Ctl* ctl = reinterpret_cast<Ctl*>(L.xn + n);
+  if (blockIdx.x != 0) {
+    worker(L, p, sm, ctl);
+    return;
+  }
+  // block 0, the leader: the whole loop; it posts the grid phases
+  unsigned epoch = 0;
 
   // ---- start: warm state handed in, or the slack basis with B^-1 = I -------
   if (p.warm) {
@@ -478,8 +600,8 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
     L.cB[i] = L.c[k];
   }
   for (int j = tid; j < n; j += kThreads) L.wts[j] = 1.f;
-  __syncthreads();
-  recompute_vectors(L, p, sm);
+  post(ctl, epoch, kRecompute);
+  recompute_vectors(L, p, sm, ctl);
 
   // Loop scalars live in registers, identical in every thread.  fresh = 1
   // <=> (B^-1, x_B, d) were recomputed since the last pivot: terminal claims
@@ -503,8 +625,8 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
         (phase == 1 && feasible_pre) || force == 1 || sref >= p.refactor_period;
     if (do_refresh) {
       ++n_refresh;
-      tell = newton_refresh(L, p, sm);
-      recompute_vectors(L, p, sm);
+      post(ctl, epoch, kRefresh);
+      tell = refresh(L, p, sm, ctl);
       sref = 0;
       fresh = 1;
     }
@@ -878,6 +1000,7 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
     if (diverged) status = NUMERICAL;
   }
   if (status == RUNNING) status = MAX_ITER;
+  post(ctl, epoch, kExit);
 
   // ---- exit telemetry for the chunk driver: phase, remaining primal
   // infeasibility and the claimed objective c.x; the major and refresh
@@ -910,9 +1033,28 @@ extern "C" {
 
 // Floats of global scratch: three m x m (the gathered Bᵀ and two Newton
 // temporaries), three minor_k x m (W, the eta ledger, the fold's P), nine
-// m-vectors and five n-vectors.
+// m-vectors and five n-vectors, then the grid's control block (its command
+// word, epoch and barrier, and one telltale for each of up to kMaxGrid
+// blocks).
 size_t streaming_simplex_workspace_floats(int m, int n, int minor_k) {
-  return 3 * (size_t)m * m + 3 * (size_t)minor_k * m + 9 * (size_t)m + 5 * (size_t)n;
+  return 3 * (size_t)m * m + 3 * (size_t)minor_k * m + 9 * (size_t)m + 5 * (size_t)n +
+         sizeof(Ctl) / sizeof(float);
+}
+
+// What bounds K2's grid on the current device: its SM count and how many
+// blocks of the kernel one SM holds.  Returns a cudaError_t,
+// cudaErrorNotSupported when the device cannot launch a cooperative grid.
+int streaming_simplex_grid_limits(int* sm_count, int* per_sm) {
+  int dev = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, stream_kernel, kThreads, 0);
+  return static_cast<int>(err);
 }
 
 // Launch K2 on `stream` for one LP.  AT (n, m), b (m), c/lo/hi (n), all f32;
@@ -920,8 +1062,11 @@ size_t streaming_simplex_workspace_floats(int m, int n, int minor_k) {
 // (m, m) f32).  Outputs basis (m) i32, vstat (n) i32, Binv (m, m) f32 and
 // monitor (7) i32 = [status, niter, phase, f32 bits of the primal
 // infeasibility, f32 bits of the objective, majors, refreshes]; ws holds
-// streaming_simplex_workspace_floats(m, n, minor_k) floats.  Returns the
-// cudaError_t of the launch; does not synchronise.
+// streaming_simplex_workspace_floats(m, n, minor_k) floats.  The kernel runs
+// as one cooperative grid of `blocks` blocks (1 to kMaxGrid, all resident at
+// once: at most streaming_simplex_grid_limits' sm_count x per_sm); the
+// results do not depend on `blocks`.  Returns the cudaError_t of the launch
+// (never a smaller grid instead); does not synchronise.
 int streaming_simplex_launch(const float* AT, const float* b, const float* c,
                              const float* lo, const float* hi, const int* basis0,
                              const int* vstat0, const float* Binv0, int* basis,
@@ -931,8 +1076,9 @@ int streaming_simplex_launch(const float* AT, const float* b, const float* c,
                              float feas_tol, float opt_tol, float pivot_tol,
                              float devex_floor, float devex_reset, float regress_tol,
                              float minor_decay, int se_weights, int xb_refine,
-                             int long_step, void* stream) {
-  if (minor_k < 1 || minor_k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+                             int long_step, int blocks, void* stream) {
+  if (minor_k < 1 || minor_k > kMaxK || blocks < 1 || blocks > kMaxGrid)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.m = m;
   p.n = n;
@@ -953,9 +1099,16 @@ int streaming_simplex_launch(const float* AT, const float* b, const float* c,
   p.devex_reset = devex_reset;
   p.regress_tol = regress_tol;
   p.minor_decay = minor_decay;
-  stream_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      AT, b, c, lo, hi, basis0, vstat0, Binv0, basis, vstat, Binv, monitor, ws, p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t ctl_at = streaming_simplex_workspace_floats(m, n, minor_k) -
+                        sizeof(Ctl) / sizeof(float);
+  cudaError_t err = cudaMemsetAsync(ws + ctl_at, 0, 4 * sizeof(unsigned), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&AT,   &b,     &c,    &lo,      &hi, &basis0, &vstat0,
+                  &Binv0, &basis, &vstat, &Binv, &monitor, &ws, &p};
+  err = cudaLaunchCooperativeKernel((void*)stream_kernel,
+                                    dim3(blocks), dim3(kThreads), args, 0, st);
+  return static_cast<int>(err == cudaSuccess ? cudaGetLastError() : err);
 }
 
 const char* streaming_simplex_error_string(int err) {

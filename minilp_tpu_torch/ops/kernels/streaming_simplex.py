@@ -28,6 +28,10 @@ Three layers, as for K1:
   replacing the Pallas TPU kernel `_stream_kernel`) and counts the launch in
   `launches`; on a CPU tensor it runs `stream_plain`.  Nothing else selects
   between the two, and nothing falls back: a failed build or launch raises.
+  The kernel is one cooperative grid (`k2_grid_blocks`: one block per SM
+  at Netlib scale): block 0 runs the simplex loop and the others join its
+  Newton refresh and vector recompute, with results bit-identical to one
+  block's.
 * `stream_plain` — the kernel's plain torch version (any device), a
   transcription of the TPU kernel's loop.  The CPU tests hold it against the
   Pallas kernel in interpret mode; `chip_smoke.py` holds the CUDA kernel
@@ -145,6 +149,11 @@ launches = 0
 #: the kernel keeps its candidate lanes in shared memory
 MAX_MINOR_K = 128
 
+#: most blocks of one launch (the kernel's telltale slots, `kMaxGrid`)
+MAX_GRID = 1024
+#: the kernel's block (512 threads, 16 warps)
+_THREADS, _WARPS = 512, 16
+
 _F = ctypes.c_float
 _I = ctypes.c_int
 _P = ctypes.c_void_p
@@ -157,11 +166,44 @@ def _library() -> ctypes.CDLL:
     lib.streaming_simplex_workspace_floats.argtypes = [_I, _I, _I]
     lib.streaming_simplex_workspace_floats.restype = ctypes.c_size_t
     lib.streaming_simplex_launch.argtypes = (
-        [_P] * 13 + [_I] * 8 + [_F] * 7 + [_I] * 3 + [_P])
+        [_P] * 13 + [_I] * 8 + [_F] * 7 + [_I] * 4 + [_P])
     lib.streaming_simplex_launch.restype = _I
+    lib.streaming_simplex_grid_limits.argtypes = [ctypes.POINTER(_I)] * 2
+    lib.streaming_simplex_grid_limits.restype = _I
     lib.streaming_simplex_error_string.argtypes = [_I]
     lib.streaming_simplex_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def k2_grid_blocks(m: int, n: int, sm_count: int, per_sm: int) -> int:
+    """Blocks of K2's cooperative grid for an (n, m) Aᵀ: as many as can be
+    resident at once (`sm_count` × `per_sm`), but no more than the widest
+    grid phase has work items: the m² entries of the Newton gather and copy
+    at one per thread, or the n rows of the reduced-cost product at one per
+    warp.  At least 1, at most `MAX_GRID`."""
+    resident = sm_count * per_sm
+    if resident < 1:
+        raise ValueError(f"no block of K2 fits: {sm_count} SMs x {per_sm} per SM")
+    work = max(-(-m * m // _THREADS), -(-n // _WARPS))
+    return max(1, min(resident, work, MAX_GRID))
+
+
+def grid_limits(device) -> Tuple[int, int]:
+    """(SM count, K2 blocks per SM) of a CUDA device; raises with the CUDA
+    error when the device cannot launch a cooperative grid."""
+    lib = _library()
+    sms, per_sm = _I(0), _I(0)
+    with torch.cuda.device(device):
+        err = lib.streaming_simplex_grid_limits(ctypes.byref(sms), ctypes.byref(per_sm))
+    if err != 0:
+        msg = lib.streaming_simplex_error_string(err).decode()
+        raise RuntimeError(f"streaming_simplex cannot launch a cooperative grid: {msg} ({err})")
+    return sms.value, per_sm.value
+
+
+def default_blocks(device, m: int, n: int) -> int:
+    """`k2_grid_blocks` on a CUDA device's own limits."""
+    return k2_grid_blocks(m, n, *grid_limits(device))
 
 
 def _check_inputs(AT, b, c, lo, hi, warm, minor_k):
@@ -201,15 +243,20 @@ def stream_kernel_call(
     feas_tol: float, opt_tol: float, pivot_tol: float, bland_after: int,
     devex_floor: float, devex_reset: float, minor_k: int, regress_tol: float,
     se_weights: bool, minor_decay: float, xb_refine: bool, long_step: bool,
+    blocks: Optional[int] = None,
 ) -> StreamOut:
     """Run K2 on one LP; returns its `StreamOut` on the inputs' device.
 
     Inputs: AT (n, m) — A transposed —, b (m,), c/lo/hi (n,), all f32 and
     contiguous on one device; `warm` is None or ``(basis0 (m,) i32,
     vstat0 (n,) i32, Binv0 (m, m) f32)``.  CUDA tensors launch the kernel
-    on the current stream (no synchronisation); CPU tensors run
-    `stream_plain`.
+    on the current stream (no synchronisation) as one cooperative grid of
+    `blocks` blocks, by default `default_blocks`; the results do not depend
+    on it (the card checks launch `blocks=1` to show that).  A device that
+    cannot take the grid raises.  CPU tensors run `stream_plain`.
     """
+    if blocks is not None and not (1 <= blocks <= MAX_GRID):
+        raise ValueError(f"blocks={blocks} must be in [1, {MAX_GRID}]")
     _check_inputs(AT, b, c, lo, hi, warm, minor_k)
     kw = dict(slack0=slack0, max_iter=max_iter, refactor_period=refactor_period,
               newton_sweeps=newton_sweeps, feas_tol=feas_tol, opt_tol=opt_tol,
@@ -224,6 +271,8 @@ def stream_kernel_call(
     n, m = AT.shape
     lib = _library()
     dev = AT.device
+    if blocks is None:
+        blocks = default_blocks(dev, m, n)
     out = StreamOut(
         basis=torch.empty(m, dtype=torch.int32, device=dev),
         vstat=torch.empty(n, dtype=torch.int32, device=dev),
@@ -245,7 +294,7 @@ def stream_kernel_call(
             bland_after, minor_k,
             feas_tol, opt_tol, pivot_tol, devex_floor, devex_reset,
             regress_tol, minor_decay,
-            int(se_weights), int(xb_refine), int(long_step), stream,
+            int(se_weights), int(xb_refine), int(long_step), blocks, stream,
         )
     if err != 0:
         msg = lib.streaming_simplex_error_string(err).decode()

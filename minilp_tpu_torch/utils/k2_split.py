@@ -16,8 +16,11 @@ these launches of the kernel by CUDA events:
 
 The default run's time less its refreshes, over its majors, is the cost of
 one major.  Changing the period changes the pivot path, so the split is an
-estimate; the kernel has no timer of its own.  Prints one JSON line per
-shape and the card's name and power limit as `nvidia-smi` gives them.
+estimate; the kernel has no timer of its own.  Every launch is the
+wrapper's cooperative grid (`k2_grid_blocks`: one block per SM at these
+shapes).  Prints one JSON line per shape (with the grid's blocks and the
+card's SM count) and the card's name and power limit as `nvidia-smi` gives
+them.
 """
 
 from __future__ import annotations
@@ -54,10 +57,13 @@ def split(tag: str) -> dict:
     can = canonicalize(presolve_problem(netlib_shaped_problem(*SHAPES[tag], seed=1))[0])
     launch = ss.prepare_launch(can.A, can.b, can.c, can.lo, can.hi,
                                **streaming_options(can, SolverOptions()))
+    m, n = launch.A.shape
+    sm_count, per_sm = ss.grid_limits(launch.args[0].device)
+    blocks = ss.k2_grid_blocks(m, n, sm_count, per_sm)
 
     def run(**over):
         out, ms = _timed(torch, lambda: ss.stream_kernel_call(
-            *launch.args, launch.warm, **dict(launch.kw, **over)))
+            *launch.args, launch.warm, blocks=blocks, **dict(launch.kw, **over)))
         status, pivots, _ph, _inf, _obj, majors, refreshes = out.monitor.tolist()
         return dict(ms=ms, status=status, pivots=pivots, majors=majors,
                     refreshes=refreshes)
@@ -69,10 +75,9 @@ def split(tag: str) -> dict:
     one = run(max_iter=1)
     refresh_ms = (every["ms"] - never["ms"]) / (every["refreshes"] - never["refreshes"])
     major_ms = (full["ms"] - full["refreshes"] * refresh_ms) / full["majors"]
-    m, n = launch.A.shape
-    return dict(shape=tag, m=m, n=n, default=full, refresh_every_pivot_64=every,
-                refresh_never_64=never, one_pivot=one, refresh_ms=refresh_ms,
-                major_ms=major_ms)
+    return dict(shape=tag, m=m, n=n, blocks=blocks, sm_count=sm_count, default=full,
+                refresh_every_pivot_64=every, refresh_never_64=never, one_pivot=one,
+                refresh_ms=refresh_ms, major_ms=major_ms)
 
 
 def main(argv: list[str]) -> int:

@@ -161,6 +161,41 @@ def test_k2_kernel_matches_plain_warm_start(cuda):
     assert int(out.monitor[1]) > 0
 
 
+def _k2_bits(out):
+    return [t.view(torch.int32).reshape(-1).cpu() for t in out]
+
+
+@pytest.mark.parametrize("case", ["cold", "warm", "long_step"])
+def test_k2_wide_matches_one_block(cuda, case):
+    """K2 on its default cooperative grid and on one block: basis, vstat,
+    the bits of B⁻¹ and the monitor are equal bit for bit."""
+    can = canonicalize(presolve_problem(netlib_shaped_problem(70, 150, 0.08, seed=2))[0])
+    options = dict(device=cuda, slack0=can.nv, refactor_period=16, max_iter=4000,
+                   long_step_min_m=0 if case == "long_step" else 2048)
+    hi = can.hi
+    if case == "warm":
+        cold = ss.solve_streaming(can.A, can.b, can.c, can.lo, can.hi, **options)
+        assert cold.verified
+        struct = [int(j) for j in cold.basis if j < can.nv]
+        j = max(struct, key=lambda k: cold.x[k] - can.lo[k])
+        hi = can.hi.copy()
+        hi[j] = 0.5 * (can.lo[j] + cold.x[j])
+        options["warm_state"] = (cold.basis, cold.vstat, np.linalg.inv(can.A[:, cold.basis]))
+    launch = ss.prepare_launch(can.A, can.b, can.c, can.lo, hi, **options)
+    m, n = launch.A.shape
+    blocks = ss.default_blocks(cuda, m, n)
+    assert blocks > 1
+    before = ss.launches
+    wide, one = (ss.stream_kernel_call(*launch.args, launch.warm, blocks=g, **launch.kw)
+                 for g in (None, 1))
+    torch.cuda.synchronize()
+    assert ss.launches == before + 2
+    assert int(wide.monitor[1]) > 0 and int(wide.monitor[6]) > 0  # pivots, refreshes
+    for name, a, b in zip(wide._fields, _k2_bits(wide), _k2_bits(one)):
+        diff = torch.nonzero(a != b)
+        assert diff.numel() == 0, f"{name} differs first at flat index {int(diff[0])}"
+
+
 def test_main_path_goes_through_k2(cuda, tmp_path, monkeypatch):
     log = tmp_path / "rec.jsonl"
     monkeypatch.setenv("MINILP_TPU_LOG", str(log))

@@ -208,6 +208,70 @@ def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
         ss.stream_kernel_call(args[0], args[1][:4].contiguous(), *args[2:], **kw)
 
 
+def _wide_phase_work_items(m, n):
+    """Work items of each of K2's grid phases, one block's worth each: the
+    Newton gather and copy (m² entries, one per thread of 512), the Newton
+    products (128×128 output tiles), the steepest-edge product (128-row
+    tiles), the reduced costs (n rows, one per warp of 16) and the column
+    sums (m columns, one per thread)."""
+    return max(-(-m * m // 512), (-(-m // 128)) ** 2, -(-n // 128), -(-n // 16),
+               -(-m // 512))
+
+
+@pytest.mark.parametrize("m,n", [(8, 16), (60, 70), (100, 300), (128, 128), (129, 260),
+                                 (824, 2432), (4096, 32768)])
+def test_k2_grid_blocks_stay_within_the_card_and_the_work(m, n):
+    for sm_count, per_sm in [(132, 1), (132, 2), (8, 1), (1, 1)]:
+        g = ss.k2_grid_blocks(m, n, sm_count, per_sm)
+        assert isinstance(g, int)
+        assert 1 <= g <= min(sm_count * per_sm, ss.MAX_GRID)
+        assert g <= _wide_phase_work_items(m, n)
+    # the card is the limit at Netlib scale, the work at a toy size
+    assert ss.k2_grid_blocks(824, 2432, 132, 1) == 132
+    assert ss.k2_grid_blocks(8, 16, 132, 1) == 1
+    with pytest.raises(ValueError):
+        ss.k2_grid_blocks(m, n, 132, 0)
+
+
+def _launch_args(seed=0, m=8, nv=16):
+    A, b, c, lo, hi = _lp(seed, m, nv)
+    t = lambda x: torch.tensor(np.asarray(x, np.float32))
+    args = (t(np.ascontiguousarray(A.T)), t(b), t(c), t(lo), t(hi))
+    kw = dict(slack0=nv, max_iter=100, refactor_period=128, newton_sweeps=2,
+              feas_tol=1e-5, opt_tol=1e-6, pivot_tol=1e-6, bland_after=400,
+              devex_floor=1e-12, devex_reset=1e8, minor_k=16, regress_tol=1e-3,
+              se_weights=True, minor_decay=0.0625, xb_refine=True, long_step=False)
+    return args, kw
+
+
+@pytest.mark.parametrize("blocks", [0, -1, ss.MAX_GRID + 1])
+def test_wrapper_rejects_a_bad_grid_before_any_launch(blocks, monkeypatch):
+    """`blocks` outside [1, MAX_GRID] raises before the plain version runs
+    or the library loads, on a CPU tensor too."""
+    args, kw = _launch_args()
+    ran = []
+    monkeypatch.setattr(ss, "stream_plain", lambda *a, **k: ran.append(1))
+    monkeypatch.setattr(ss, "_library", lambda: ran.append(2))
+    before = ss.launches
+    with pytest.raises(ValueError, match="blocks"):
+        ss.stream_kernel_call(*args, blocks=blocks, **kw)
+    assert ran == [] and ss.launches == before
+
+
+@pytest.mark.parametrize("blocks", [1, 7])
+def test_wrapper_with_blocks_runs_plain_on_cpu(blocks):
+    """On a CPU tensor `blocks` changes nothing: the plain version runs,
+    bit for bit, and no launch is counted."""
+    args, kw = _launch_args(seed=1, m=16, nv=24)
+    before = ss.launches
+    out = ss.stream_kernel_call(*args, blocks=blocks, **kw)
+    assert ss.launches == before
+    ref = ss.stream_plain(*args, **kw)
+    for x, y in zip(out, ref):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+    assert int(out.monitor[0]) == int(Status.OPTIMAL)
+
+
 def test_build_digest_follows_included_headers(tmp_path):
     """A kernel's library name hashes the headers it includes, so an edited
     shared header never loads a stale build (no nvcc needed)."""
