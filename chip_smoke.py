@@ -15,7 +15,12 @@ failure (exit code 1; no result line is printed then):
    batch of 64 random 32×128 LPs, the two `single_lp` instances of
    `bench.py` canonicalized (padded (256, 1024) and (504, 2048)) cold, and
    one warm start after a tightened bound.  Required: the same status and
-   `verified` flag per LP, certified objectives within 1e-9 relative;
+   `verified` flag per LP, certified objectives within 1e-9 relative.  A
+   one-LP launch is one cooperative grid (one block per SM); on each
+   one-LP case its out rows and the bits of its final B⁻¹ must equal those
+   of the same launch on one block, while the batch of 64 runs one block
+   per LP.  `utils/k1_split.py` gives the grid's per-refresh and per-pivot
+   times at both `single_lp` shapes;
 3b. K2 against its plain torch version on the card, on the inputs and
    options of the main path's first K2 launch (`prepare_launch` with the
    driver's `streaming_options`): the 25fv47 shape (presolved and
@@ -198,8 +203,25 @@ def assert_agree(tag, kernel, plain):
     return float(err.max()), float(rel.max())
 
 
+def same_k1_bits(tag, wide, one, m):
+    """Raise unless two one-LP K1 launches' (out, ws) agree bit for bit: the
+    out row and the final B⁻¹ (the workspace's first m·m floats, as int32);
+    name the first differing index."""
+    import torch
+
+    for name, a, b in (("out row", wide[0], one[0]),
+                       ("B⁻¹", wide[1][:m * m].view(torch.int32),
+                        one[1][:m * m].view(torch.int32))):
+        diff = torch.nonzero(a.reshape(-1) != b.reshape(-1))
+        if diff.numel():
+            i = int(diff[0])
+            raise AssertionError(f"{tag}: wide and one-block K1 differ in {name} "
+                                 f"at flat index {i}")
+
+
 class Compare:
-    """K1 against its plain version on the same device inputs."""
+    """K1 against its plain version on the same device inputs; a one-LP
+    case also against its own launch on one block."""
 
     def __init__(self, torch, bs):
         self.torch, self.bs = torch, bs
@@ -217,7 +239,13 @@ class Compare:
             warm_t = (t(warm[0], np.int32), t(warm[1], np.int32), t(warm[2]))
         kw = dict(slack0=slack0, max_iter=max_iter, **KERNEL_KW)
         m, n = A.shape[1], A.shape[2]
-        out_k, ms_k = timed(torch, lambda: bs.simplex_kernel_call(*args, warm_t, **kw), reps)
+        wide, ms_k = timed(torch, lambda: bs._launch(*args, warm_t, **kw), reps)
+        out_k = wide[0]
+        if A.shape[0] == 1:
+            one, ms_one = timed(torch, lambda: bs._launch(*args, warm_t, blocks=1, **kw))
+            same_k1_bits(tag, wide, one, m)
+            log(f"  {tag}: wide grid of {bs.default_blocks(dev, m, n)} blocks and one block "
+                f"bit-identical (out row, B⁻¹); one_block_ms={ms_one:.3f}")
         out_p, ms_p = timed(torch, lambda: bs.simplex_plain(*args, warm_t, **kw), 1)
         res = []
         for out in (out_k, out_p):
@@ -614,7 +642,7 @@ def main() -> int:
     from minilp_tpu_torch.ops.kernels import batched_simplex as bs, build
     from minilp_tpu_torch.engine.driver import streaming_options
     from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
-    from minilp_tpu_torch.utils import k2_split
+    from minilp_tpu_torch.utils import k1_split, k2_split
     from minilp_tpu_torch.utils.synth import netlib_shaped_problem, random_batch
 
     if pathlib.Path(minilp_tpu_torch.__file__).resolve().parent != HERE / "minilp_tpu_torch":
@@ -656,6 +684,11 @@ def main() -> int:
     cmp_.run("warm_256x1024_tightened", can.A[None], can.b[None], can.c[None],
              can.lo[None], hi2[None], slack0=can.nv, max_iter=32 * (can.M + can.N) + 1000,
              warm=(cold.basis, cold.vstat, Binv0[None]))
+    for tag in SINGLE_LP:
+        k1s = k1_split.split(tag)
+        log(f"  K1 grid at {tag}: G={k1s['blocks']} blocks on {k1s['sm_count']} SMs; "
+            f"k1_split: refresh_ms={k1s['refresh_ms']:.3f} pivot_ms={k1s['pivot_ms']:.4f} "
+            f"default run {k1s['default']}")
 
     # ---- 3b. K2 against its plain version on the card -----------------------
     log("[3b] K2 (CUDA) vs plain torch on the card")

@@ -143,7 +143,8 @@ __device__ int block_argmax(float v, int idx, S& sm) {
 // (non-coherent) cache path must never serve them.
 
 // A helper below run by `size` blocks together takes the share of block
-// `rank` (K2's grid phases); the default (0, 1) is the whole job in one block.
+// `rank` (the grid phases of K1 and K2); the default (0, 1) is the whole job
+// in one block.
 // Every output keeps one fixed-order sum whatever the share, so the results do
 // not depend on (rank, size).
 

@@ -55,9 +55,11 @@
 // Aᵀ once (pricing) plus B^-1 once or twice (y, and W), and the fold reads
 // and writes B^-1, so one SM's share of L2 bandwidth bounds them, with A
 // dense though it is about 1% full.  Spreading the majors over the grid,
-// with A sparse in pricing and W, is the next step.
+// with A sparse in pricing and W, is the next step.  The grid's machinery
+// (command word, barrier, worker loop) is shared with K1 in simplex_grid.cuh.
 
 #include "simplex_common.cuh"
+#include "simplex_grid.cuh"
 
 namespace {
 
@@ -94,62 +96,8 @@ struct Smem {
   int cmd;              // a worker's current command
 };
 
-// ---- the grid: the leader's commands and the grid barrier ------------------
-constexpr int kMaxGrid = 1024;  // blocks a launch may have
-constexpr unsigned kRecompute = 1, kRefresh = 2, kExit = 3;
-
-// Global-memory control block at the end of the workspace.  The launch
-// zeroes the four words; the leader posts a command by writing `cmd` and
-// then releasing `epoch` + 1, and a worker acquires the epoch it expects.
-struct Ctl {
-  unsigned cmd, epoch;  // the leader's command and its sequence number
-  unsigned count, gen;  // grid barrier: arrivals, and the generation
-  float tell[kMaxGrid]; // each block's Newton telltale
-};
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
-  asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-
-// Every block of the grid waits here until all have arrived; the writes of
-// each block before it are visible to every block after it.  Thread 0 of
-// each block arrives and waits, between two block barriers and two fences
-// (the pattern of cooperative_groups' grid sync), with a short sleep in the
-// wait.  On one block it is a block barrier.
-__device__ void grid_sync(Ctl* ctl) {
-  __syncthreads();
-  if (gridDim.x == 1) return;
-  if (threadIdx.x == 0) {
-    const unsigned g = ld_acquire(&ctl->gen);
-    __threadfence();
-    if (atomicAdd(&ctl->count, 1u) == gridDim.x - 1) {
-      atomicExch(&ctl->count, 0u);
-      st_release(&ctl->gen, g + 1);
-    } else {
-      while (ld_acquire(&ctl->gen) == g) __nanosleep(64);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// The leader posts command `cmd` (its writes so far become visible to the
-// worker that acquires it); `epoch` counts the posts, uniform in the block.
-__device__ void post(Ctl* ctl, unsigned& epoch, unsigned cmd) {
-  ++epoch;
-  __syncthreads();
-  if (threadIdx.x == 0 && gridDim.x > 1) {
-    __threadfence();
-    ctl->cmd = cmd;
-    st_release(&ctl->epoch, epoch);
-  }
-}
+// ---- the leader's commands to the grid (simplex_grid.cuh) ------------------
+constexpr unsigned kRecompute = 1, kRefresh = 2;
 
 // One LP's global-memory state (the TPU kernel's VMEM scratch and outputs).
 struct Lp {
@@ -299,24 +247,24 @@ __device__ __noinline__ void recompute_vectors(const Lp& L, const Params& p, Sme
   const int m = p.m, n = p.n, rank = blockIdx.x, size = gridDim.x;
   const int gtid = rank * kThreads + threadIdx.x, threads = size * kThreads;
   for (int j = gtid; j < n; j += threads) L.xn[j] = nonbasic_x(L.vstat[j], L.lo[j], L.hi[j]);
-  grid_sync(ctl);
+  grid_sync(ctl, size);
   // b_eff = b - A x_N = b - sum_j x_N[j] Aᵀ[j, :]
   colsums_rows(L.xn, [&](int j) { return L.AT + (size_t)j * m; }, n, m,
                [&](int k, float acc) { L.beff[k] = L.b[k] - acc; }, rank, size);
-  grid_sync(ctl);
+  grid_sync(ctl, size);
   matvec(L.Binv, L.beff, m, m, [&](int i, float acc) { L.xB[i] = acc; }, rank, size);
-  grid_sync(ctl);
+  grid_sync(ctl, size);
   if (p.xb_refine) {
     // r = b_eff - B x_B (B x_B = sum_i x_B[i] Aᵀ[basis[i], :]); x_B += B^-1 r
     colsums_rows(L.xB, [&](int i) { return L.AT + (size_t)L.basis[i] * m; }, m, m,
                  [&](int k, float acc) { L.beff[k] = L.beff[k] - acc; }, rank, size);
-    grid_sync(ctl);
+    grid_sync(ctl, size);
     matvec(L.Binv, L.beff, m, m, [&](int i, float acc) { L.xB[i] = L.xB[i] + acc; },
            rank, size);
-    grid_sync(ctl);
+    grid_sync(ctl, size);
   }
   colsums(L.cB, L.Binv, m, m, [&](int j, float acc) { L.y[j] = acc; }, rank, size);
-  grid_sync(ctl);
+  grid_sync(ctl, size);
   matvec(L.AT, L.y, n, m, [&](int j, float acc) {
     L.d[j] = L.vstat[j] == BASIC ? 0.f : L.c[j] - acc;
   }, rank, size);
@@ -343,7 +291,7 @@ __device__ __noinline__ void recompute_vectors(const Lp& L, const Params& p, Sme
                       },
                       sm, rank, size, true);
   }
-  grid_sync(ctl);
+  grid_sync(ctl, size);
 }
 
 // `newton_sweeps` sweeps X <- 2X - (X B) X with B gathered from Aᵀ by basis
@@ -355,7 +303,7 @@ __device__ void newton_refresh(const Lp& L, const Params& p, Smem& sm, Ctl* ctl)
   const size_t gtid = (size_t)rank * kThreads + threadIdx.x, threads = (size_t)size * kThreads;
   for (size_t e = gtid; e < mm; e += threads)
     L.BT[e] = L.AT[(size_t)L.basis[e / m] * m + e % m];  // Bᵀ row i = column basis[i]
-  grid_sync(ctl);
+  grid_sync(ctl, size);
   float tmax = 0.f;
   for (int s = 0; s < p.newton_sweeps; ++s) {
     tmax = 0.f;
@@ -372,7 +320,7 @@ __device__ void newton_refresh(const Lp& L, const Params& p, Smem& sm, Ctl* ctl)
                           }
                       },
                       sm, rank, size);
-    grid_sync(ctl);
+    grid_sync(ctl, size);
     // X' = 2X - H X
     gemm<false, false>(L.H, m, L.Binv, m, m, m, m,
                        [&](int i0, int j0, Patch& acc) {
@@ -386,9 +334,9 @@ __device__ void newton_refresh(const Lp& L, const Params& p, Smem& sm, Ctl* ctl)
                            }
                        },
                        sm, rank, size);
-    grid_sync(ctl);
+    grid_sync(ctl, size);
     for (size_t e = gtid; e < mm; e += threads) L.Binv[e] = L.Xn[e];
-    grid_sync(ctl);
+    grid_sync(ctl, size);
   }
   tmax = block_max_nan(tmax, sm);
   if (threadIdx.x == 0) ctl->tell[rank] = tmax;
@@ -404,23 +352,6 @@ __device__ __noinline__ float refresh(const Lp& L, const Params& p, Smem& sm, Ct
   float tell = ctl->tell[0];
   for (int r = 1; r < (int)gridDim.x; ++r) tell = max_nan(tell, ctl->tell[r]);
   return tell;
-}
-
-// A worker block (1..G-1): sleep until the leader posts, run its share of
-// the phase, and wait again; return on kExit.  The sleep keeps the waiting
-// blocks' polls (one load a microsecond each) off the leader's L2 bandwidth.
-__device__ void worker(const Lp& L, const Params& p, Smem& sm, Ctl* ctl) {
-  for (unsigned epoch = 1;; ++epoch) {
-    if (threadIdx.x == 0) {
-      while (ld_acquire(&ctl->epoch) != epoch) __nanosleep(1000);
-      sm.cmd = (int)ld_acquire(&ctl->cmd);
-    }
-    __syncthreads();
-    const int cmd = sm.cmd;
-    if (cmd == (int)kExit) return;
-    if (cmd == (int)kRefresh) refresh(L, p, sm, ctl);
-    else recompute_vectors(L, p, sm, ctl);
-  }
 }
 
 // Phase-1 long step: walk the convex piecewise-linear phase-1 objective along
@@ -567,8 +498,11 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
   L.sc = L.wts + n;
   L.xn = L.sc + n;
   Ctl* ctl = reinterpret_cast<Ctl*>(L.xn + n);
-  if (blockIdx.x != 0) {
-    worker(L, p, sm, ctl);
+  if (blockIdx.x != 0) {  // a worker: its share of each refresh or recompute
+    worker_loop(ctl, sm.cmd, 1000, [&](int cmd) {  // its phases are long: poll each µs
+      if (cmd == (int)kRefresh) refresh(L, p, sm, ctl);
+      else recompute_vectors(L, p, sm, ctl);
+    });
     return;
   }
   // block 0, the leader: the whole loop; it posts the grid phases
@@ -600,7 +534,7 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
     L.cB[i] = L.c[k];
   }
   for (int j = tid; j < n; j += kThreads) L.wts[j] = 1.f;
-  post(ctl, epoch, kRecompute);
+  post(ctl, epoch, kRecompute, gridDim.x);
   recompute_vectors(L, p, sm, ctl);
 
   // Loop scalars live in registers, identical in every thread.  fresh = 1
@@ -625,7 +559,7 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
         (phase == 1 && feasible_pre) || force == 1 || sref >= p.refactor_period;
     if (do_refresh) {
       ++n_refresh;
-      post(ctl, epoch, kRefresh);
+      post(ctl, epoch, kRefresh, gridDim.x);
       tell = refresh(L, p, sm, ctl);
       sref = 0;
       fresh = 1;
@@ -1000,7 +934,7 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
     if (diverged) status = NUMERICAL;
   }
   if (status == RUNNING) status = MAX_ITER;
-  post(ctl, epoch, kExit);
+  post(ctl, epoch, kExit, gridDim.x);
 
   // ---- exit telemetry for the chunk driver: phase, remaining primal
   // infeasibility and the claimed objective c.x; the major and refresh
@@ -1102,7 +1036,7 @@ int streaming_simplex_launch(const float* AT, const float* b, const float* c,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t ctl_at = streaming_simplex_workspace_floats(m, n, minor_k) -
                         sizeof(Ctl) / sizeof(float);
-  cudaError_t err = cudaMemsetAsync(ws + ctl_at, 0, 4 * sizeof(unsigned), st);
+  cudaError_t err = zero_ctl(reinterpret_cast<Ctl*>(ws + ctl_at), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&AT,   &b,     &c,    &lo,      &hi, &basis0, &vstat0,
                   &Binv0, &basis, &vstat, &Binv, &monitor, &ws, &p};

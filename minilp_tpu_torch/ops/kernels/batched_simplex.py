@@ -1,10 +1,14 @@
-"""K1, the batched small-LP simplex megakernel: one LP per thread block.
+"""K1, the batched small-LP simplex megakernel.
 
 PyTorch port of `minilp_tpu/ops/kernels/batched_simplex.py`.  The whole
-bounded two-phase primal simplex of each LP runs inside one kernel launch
-(grid = batch) — pricing, FTRAN, the ratio test, the rank-1 product-form
-update of a dense f32 B⁻¹ and the periodic Newton refresh — with no host
-round trip per pivot.  The kernel is hand-written CUDA C++ for Hopper
+bounded two-phase primal simplex of each LP runs inside one kernel launch —
+pricing, FTRAN, the ratio test, the rank-1 product-form update of a dense
+f32 B⁻¹ and the periodic Newton refresh — with no host round trip per pivot.
+A batch runs one LP per thread block (grid = batch); a launch of one LP, the
+single-LP `Problem.solve()` path, runs as one cooperative grid
+(`k1_grid_blocks`: one block per SM at the main path's shapes) whose extra
+blocks join the refresh, the recompute and each pivot's m²- and m·n-class
+sweeps.  The kernel is hand-written CUDA C++ for Hopper
 (`minilp_tpu_torch/csrc/batched_simplex.cu`, replacing the Pallas TPU kernel
 `_simplex_kernel`); its source note says what bounds it on an H100.
 
@@ -56,6 +60,11 @@ class BatchResult(NamedTuple):
 #: it after
 launches = 0
 
+#: most blocks of one launch (`kMaxGrid` of `csrc/simplex_grid.cuh`)
+MAX_GRID = 1024
+#: the kernel's block (512 threads, 16 warps) and its GEMM tile
+_THREADS, _WARPS, _TILE = 512, 16, 64
+
 _F = ctypes.c_float
 _I = ctypes.c_int
 _P = ctypes.c_void_p
@@ -65,13 +74,49 @@ def _library() -> ctypes.CDLL:
     lib = build.load("batched_simplex").lib
     # every pointer and the stream as c_void_p: an undeclared argument
     # would pass as a 32-bit int and cut the pointer
-    lib.batched_simplex_workspace_floats.argtypes = [_I, _I]
+    lib.batched_simplex_workspace_floats.argtypes = [_I, _I, _I]
     lib.batched_simplex_workspace_floats.restype = ctypes.c_size_t
-    lib.batched_simplex_launch.argtypes = [_P] * 10 + [_I] * 6 + [_F] * 3 + [_I, _P]
+    lib.batched_simplex_launch.argtypes = [_P] * 10 + [_I] * 6 + [_F] * 3 + [_I, _I, _P]
     lib.batched_simplex_launch.restype = _I
+    lib.batched_simplex_grid_limits.argtypes = [ctypes.POINTER(_I)] * 2
+    lib.batched_simplex_grid_limits.restype = _I
     lib.batched_simplex_error_string.argtypes = [_I]
     lib.batched_simplex_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def k1_grid_blocks(m: int, n: int, sm_count: int, per_sm: int) -> int:
+    """Blocks of the cooperative grid of a one-LP K1 launch at (m, n): as
+    many as can be resident at once (`sm_count` × `per_sm`), but no more
+    than the widest grid phase has work items: the m² entries of the rank-1
+    update and the Newton gather at one per thread, the refresh GEMM's
+    64×64 tiles, the m rows of a matvec at one per warp, or the n column
+    sums at one warp per 32 columns and block.  At least 1, at most
+    `MAX_GRID`."""
+    resident = sm_count * per_sm
+    if resident < 1:
+        raise ValueError(f"no block of K1 fits: {sm_count} SMs x {per_sm} per SM")
+    tiles = -(-m // _TILE)
+    work = max(-(-m * m // _THREADS), tiles * tiles, -(-m // _WARPS), -(-n // 32))
+    return max(1, min(resident, work, MAX_GRID))
+
+
+def grid_limits(device) -> Tuple[int, int]:
+    """(SM count, K1 blocks per SM) of a CUDA device; raises with the CUDA
+    error when the device cannot launch a cooperative grid."""
+    lib = _library()
+    sms, per_sm = _I(0), _I(0)
+    with torch.cuda.device(device):
+        err = lib.batched_simplex_grid_limits(ctypes.byref(sms), ctypes.byref(per_sm))
+    if err != 0:
+        msg = lib.batched_simplex_error_string(err).decode()
+        raise RuntimeError(f"batched_simplex cannot launch a cooperative grid: {msg} ({err})")
+    return sms.value, per_sm.value
+
+
+def default_blocks(device, m: int, n: int) -> int:
+    """`k1_grid_blocks` on a CUDA device's own limits."""
+    return k1_grid_blocks(m, n, *grid_limits(device))
 
 
 def _check_inputs(A, b, c, lo, hi, warm):
@@ -107,6 +152,7 @@ def simplex_kernel_call(
     A, b, c, lo, hi, warm=None, *,
     slack0: int, max_iter: int, refactor_period: int, feas_tol: float,
     opt_tol: float, pivot_tol: float, bland_after: int,
+    blocks: Optional[int] = None,
 ) -> torch.Tensor:
     """Run K1 on a batch of LPs; returns (B, m + n + 2) int32 rows
     ``[basis | vstat | status | niter]`` on the inputs' device.
@@ -114,20 +160,38 @@ def simplex_kernel_call(
     Inputs: A (B, m, n), b (B, m), c/lo/hi (B, n), all f32 and contiguous on
     one device; `warm` is None or ``(basis0 (B, m) i32, vstat0 (B, n) i32,
     Binv0 (B, m, m) f32)``.  CUDA tensors launch the kernel on the current
-    stream (no synchronisation); CPU tensors run `simplex_plain`.
+    stream (no synchronisation): a batch of one as one cooperative grid of
+    `blocks` blocks, by default `default_blocks`, whose results do not
+    depend on it (the card checks launch `blocks=1` to show that); a larger
+    batch as one block per LP, which takes no `blocks` above 1.  A device
+    that cannot take the grid raises.  CPU tensors run `simplex_plain`.
     """
+    return _launch(A, b, c, lo, hi, warm, slack0=slack0, max_iter=max_iter,
+                   refactor_period=refactor_period, feas_tol=feas_tol,
+                   opt_tol=opt_tol, pivot_tol=pivot_tol, bland_after=bland_after,
+                   blocks=blocks)[0]
+
+
+def _launch(A, b, c, lo, hi, warm=None, *, blocks: Optional[int] = None, **kw):
+    """`simplex_kernel_call`'s work: returns (out, ws), with ws the kernel's
+    workspace (None from the plain version), whose first m·m floats of each
+    LP's share hold its final B⁻¹."""
+    if blocks is not None and not (1 <= blocks <= MAX_GRID):
+        raise ValueError(f"blocks={blocks} must be in [1, {MAX_GRID}]")
     _check_inputs(A, b, c, lo, hi, warm)
-    kw = dict(slack0=slack0, max_iter=max_iter, refactor_period=refactor_period,
-              feas_tol=feas_tol, opt_tol=opt_tol, pivot_tol=pivot_tol,
-              bland_after=bland_after)
+    Bsz, m, n = A.shape
+    if blocks is not None and blocks > 1 and Bsz > 1:
+        raise ValueError(f"blocks={blocks} spreads one LP; a batch of {Bsz} runs "
+                         "one block per LP")
     if A.device.type == "cpu":
-        return simplex_plain(A, b, c, lo, hi, warm, **kw)
+        return simplex_plain(A, b, c, lo, hi, warm, **kw), None
     if A.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA (kernel) or CPU (plain), not {A.device}")
-    Bsz, m, n = A.shape
     lib = _library()
+    if blocks is None:
+        blocks = default_blocks(A.device, m, n) if Bsz == 1 else 1
     out = torch.empty((Bsz, m + n + 2), dtype=torch.int32, device=A.device)
-    ws = torch.empty((Bsz, lib.batched_simplex_workspace_floats(m, n)),
+    ws = torch.empty(lib.batched_simplex_workspace_floats(Bsz, m, n),
                      dtype=torch.float32, device=A.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     basis0, vstat0, Binv0 = warm if warm is not None else (None, None, None)
@@ -136,15 +200,16 @@ def simplex_kernel_call(
         err = lib.batched_simplex_launch(
             ptr(A), ptr(b), ptr(c), ptr(lo), ptr(hi),
             ptr(basis0), ptr(vstat0), ptr(Binv0), ptr(out), ptr(ws),
-            Bsz, m, n, slack0, max_iter, refactor_period,
-            feas_tol, opt_tol, pivot_tol, bland_after, stream,
+            Bsz, m, n, kw["slack0"], kw["max_iter"], kw["refactor_period"],
+            kw["feas_tol"], kw["opt_tol"], kw["pivot_tol"], kw["bland_after"],
+            blocks, stream,
         )
     if err != 0:
         msg = lib.batched_simplex_error_string(err).decode()
         raise RuntimeError(f"batched_simplex kernel launch failed: {msg} ({err})")
     global launches
     launches += 1
-    return out
+    return out, ws
 
 
 def simplex_plain(

@@ -114,6 +114,52 @@ def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
     assert (out[:, -2] == int(Status.OPTIMAL)).all()
 
 
+@pytest.mark.parametrize("m,n", [(8, 16), (24, 128), (64, 256), (256, 1024), (504, 2048)])
+@pytest.mark.parametrize("sm_count,per_sm", [(132, 1), (1, 1), (132, 2), (2048, 1)])
+def test_k1_grid_blocks_within_card_and_work(m, n, sm_count, per_sm):
+    """G fits the card (all blocks resident at once, at most MAX_GRID) and
+    no block lacks an item of the widest grid phase: the m² elementwise
+    steps at one per thread, the refresh GEMM's 64×64 tiles, matvec rows at
+    one per warp, column sums at one warp per 32 columns."""
+    g = bs.k1_grid_blocks(m, n, sm_count, per_sm)
+    work = max(-(-m * m // 512), (-(-m // 64)) ** 2, -(-m // 16), -(-n // 32))
+    assert 1 <= g <= min(sm_count * per_sm, bs.MAX_GRID, work)
+    assert g == min(sm_count * per_sm, bs.MAX_GRID, work)
+    if (m, n) in ((256, 1024), (504, 2048)) and sm_count > 1:
+        assert g > 1  # the main path's single-LP shapes go wide on an H100
+
+
+def test_k1_grid_blocks_rejects_an_empty_card():
+    with pytest.raises(ValueError):
+        bs.k1_grid_blocks(504, 2048, 132, 0)
+
+
+@pytest.mark.parametrize("B,blocks", [(1, 0), (1, bs.MAX_GRID + 1), (2, 2), (4, 132)])
+def test_wrapper_rejects_bad_blocks_before_any_launch(B, blocks):
+    """`blocks` outside [1, MAX_GRID], or above 1 for a batch (a batch runs
+    one block per LP), raises before anything runs, on any device."""
+    args = _tensors(B=B)
+    before = bs.launches
+    with pytest.raises(ValueError, match="blocks"):
+        bs.simplex_kernel_call(*args, slack0=6, max_iter=100, blocks=blocks, **KW)
+    assert bs.launches == before
+
+
+@pytest.mark.parametrize("B,blocks", [(1, 1), (1, 7), (1, None), (3, 1)])
+def test_wrapper_blocks_on_cpu_runs_plain(B, blocks):
+    """CPU tensors run the plain version whatever `blocks` says, and count
+    no launch; the private launch helper returns no workspace for them."""
+    args = _tensors(B=B, seed=B)
+    before = bs.launches
+    out, ws = bs._launch(*args, slack0=6, max_iter=100, blocks=blocks, **KW)
+    assert bs.launches == before and ws is None
+    np.testing.assert_array_equal(
+        out.numpy(), bs.simplex_plain(*args, slack0=6, max_iter=100, **KW).numpy())
+    np.testing.assert_array_equal(
+        out.numpy(),
+        bs.simplex_kernel_call(*args, slack0=6, max_iter=100, blocks=blocks, **KW).numpy())
+
+
 @pytest.mark.parametrize("fault", ["dtype", "shape", "contiguous", "warm_dtype"])
 def test_wrapper_rejects_bad_inputs(fault):
     A, b, c, lo, hi = _tensors()

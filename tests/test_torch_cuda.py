@@ -22,7 +22,8 @@ from minilp_tpu_torch.ops.kernels import packed_simplex as ps
 from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
 from minilp_tpu_torch.parallel import batched
 from minilp_tpu_torch.presolve import presolve_problem
-from minilp_tpu_torch.utils.synth import netlib_shaped_problem, random_batch
+from minilp_tpu_torch.utils.synth import (netlib_shaped_problem, network_flow_problem,
+                                          random_batch)
 
 pytestmark = pytest.mark.cuda
 
@@ -76,6 +77,43 @@ def test_kernel_matches_plain_warm_start(cuda):
     hi2[:, :36] = np.minimum(hi2[:, :36], 0.5)  # cut every structural box
     _kernel_and_plain(cuda, A, b, c, lo, hi2, slack0=36,
                       warm=(cold.basis, cold.vstat, Binv0))
+
+
+@pytest.mark.parametrize("case", ["cold", "warm", "phase1"])
+def test_k1_wide_matches_one_block(cuda, case):
+    """A one-LP K1 launch on its default cooperative grid and on one block:
+    the out rows (basis, vstat, status, niter) and the bits of the final
+    B⁻¹ are equal.  "phase1" is an all-equality network flow, whose slack
+    basis is infeasible everywhere."""
+    if case == "phase1":
+        prob = network_flow_problem(60, 200, seed=4)
+    else:
+        prob = netlib_shaped_problem(70, 150, 0.08, seed=2)
+    can = canonicalize(presolve_problem(prob)[0])
+    kw = dict(KW, slack0=can.nv, max_iter=4000, refactor_period=16)
+    hi, warm = can.hi, None
+    if case == "warm":
+        cold = bs.solve_batch_megakernel(can.A[None], can.b[None], can.c[None], can.lo[None],
+                                         can.hi[None], device=cuda, **kw)
+        assert cold.verified.all()
+        basis = cold.basis[0]
+        j = max((int(k) for k in basis if k < can.nv), key=lambda k: cold.x[0][k] - can.lo[k])
+        hi = can.hi.copy()
+        hi[j] = 0.5 * (can.lo[j] + cold.x[0][j])
+        t = lambda x, dt: torch.tensor(np.asarray(x, dtype=dt)[None], device=cuda)
+        warm = (t(basis, np.int32), t(cold.vstat[0], np.int32),
+                t(np.linalg.inv(can.A[:, basis]), np.float32))
+    args = [torch.tensor(np.asarray(x, dtype=np.float32)[None], device=cuda)
+            for x in (can.A, can.b, can.c, can.lo, hi)]
+    m, n = can.A.shape
+    assert bs.default_blocks(cuda, m, n) > 1
+    before = bs.launches
+    (wide, ws_wide), (one, ws_one) = (bs._launch(*args, warm, blocks=g, **kw) for g in (None, 1))
+    torch.cuda.synchronize()
+    assert bs.launches == before + 2
+    assert int(wide[0, -1]) > 0  # pivots
+    assert torch.equal(wide, one)
+    assert torch.equal(ws_wide[:m * m].view(torch.int32), ws_one[:m * m].view(torch.int32))
 
 
 def test_main_path_goes_through_the_kernel(cuda, tmp_path, monkeypatch):

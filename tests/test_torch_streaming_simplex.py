@@ -289,6 +289,9 @@ def test_build_digest_follows_included_headers(tmp_path):
     # every kernel of the port includes the shared header
     for name in ("batched_simplex", "streaming_simplex", "packed_simplex"):
         assert '#include "simplex_common.cuh"' in (build.CSRC / f"{name}.cu").read_text()
+    # and the two single-LP grids share theirs
+    for name in ("batched_simplex", "streaming_simplex"):
+        assert '#include "simplex_grid.cuh"' in (build.CSRC / f"{name}.cu").read_text()
 
 
 # ---- the driver: Problem.solve() routed through K2 --------------------------
