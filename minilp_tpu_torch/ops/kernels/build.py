@@ -45,7 +45,7 @@ class Built:
         self.log = log
 
 
-_loaded: dict[str, Built] = {}
+_loaded: dict[tuple, Built] = {}
 
 
 def _nvcc() -> str:
@@ -65,7 +65,7 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 
-def source_digest(src: pathlib.Path) -> str:
+def source_digest(src: pathlib.Path, flags=NVCC_FLAGS) -> str:
     """Hash of `src`, of every header it includes by a quoted `#include`
     that lies beside it (followed transitively, as nvcc resolves them), and
     of the flags."""
@@ -84,23 +84,25 @@ def source_digest(src: pathlib.Path) -> str:
                 add(dep)
 
     add(src)
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
-def load(name: str) -> Built:
-    """Compile `csrc/<name>.cu` (once per source, headers and flags) and
-    load it."""
-    if name in _loaded:
-        return _loaded[name]
+def load(name: str, defines: tuple = ()) -> Built:
+    """Compile `csrc/<name>.cu` (once per source, headers, flags and
+    `defines`, macros such as a diagnostic build's) and load it."""
+    key = (name, tuple(defines))
+    if key in _loaded:
+        return _loaded[key]
     src = CSRC / f"{name}.cu"
-    digest = source_digest(src)
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    digest = source_digest(src, flags)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     seconds, log = 0.0, ""
     if not out.exists():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -110,5 +112,5 @@ def load(name: str) -> Built:
             raise RuntimeError(f"nvcc failed for {src.name}:\n{log}")
         os.replace(tmp, out)  # atomic: a concurrent build never sees a partial file
     built = Built(ctypes.CDLL(str(out)), out, seconds, log)
-    _loaded[name] = built
+    _loaded[key] = built
     return built

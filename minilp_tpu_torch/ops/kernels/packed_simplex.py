@@ -25,7 +25,11 @@ Three layers, as for K1:
   replacing the Pallas TPU kernel `_packed_kernel`; one warp per LP, one
   thread block per pack) and counts the launch in `launches`; on a CPU
   tensor it runs `packed_plain`.  Nothing else selects between the two, and
-  nothing falls back: a failed build or launch raises.
+  nothing falls back: a failed build or launch raises.  The kernel's memory
+  layout (`LAYOUTS`: each LP's A and workspace in shared memory, the
+  workspace alone there, or the workspace in global memory) is sized to the
+  pack per launch, the first that fits by default; every layout gives the
+  same bits.
 * `packed_plain` — the kernel's plain torch version (any device): K1's plain
   loop body (`batched_simplex.simplex_plain`) with the pack's refresh rule.
 * `solve_batch_packed` — host numpy in, f32 to the device, one kernel call,
@@ -52,24 +56,58 @@ launches = 0
 #: one warp per LP in one thread block: at most 1024 threads
 MAX_PACK = 32
 
+#: the kernel's layouts, in the order the default tries them: "staged" (each
+#: LP's A copied into shared memory beside its workspace), "shared" (the
+#: workspace in shared memory, A read from global memory), "global" (the
+#: workspace in global memory; always fits)
+LAYOUTS = ("staged", "shared", "global")
+
 _F = ctypes.c_float
 _I = ctypes.c_int
 _P = ctypes.c_void_p
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("packed_simplex").lib
+def _library(defines: tuple = ()) -> ctypes.CDLL:
+    lib = build.load("packed_simplex", defines).lib
     # every pointer and the stream as c_void_p: an undeclared argument
     # would pass as a 32-bit int and cut the pointer
-    lib.packed_simplex_workspace_floats.argtypes = [_I, _I]
+    lib.packed_simplex_workspace_floats.argtypes = [_I, _I, _I, _I]
     lib.packed_simplex_workspace_floats.restype = ctypes.c_size_t
-    lib.packed_simplex_uses_global_workspace.argtypes = [_I, _I, _I]
-    lib.packed_simplex_uses_global_workspace.restype = _I
-    lib.packed_simplex_launch.argtypes = [_P] * 7 + [_I] * 7 + [_F] * 3 + [_I, _P]
+    lib.packed_simplex_layout_fits.argtypes = [_I, _I, _I, _I]
+    lib.packed_simplex_layout_fits.restype = _I
+    lib.packed_simplex_smem_bytes.argtypes = [_I, _I, _I, _I]
+    lib.packed_simplex_smem_bytes.restype = ctypes.c_size_t
+    lib.packed_simplex_launch.argtypes = [_P] * 7 + [_I] * 8 + [_F] * 3 + [_I, _P]
     lib.packed_simplex_launch.restype = _I
     lib.packed_simplex_error_string.argtypes = [_I]
     lib.packed_simplex_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _check_layout(layout) -> None:
+    if layout is not None and layout not in LAYOUTS:
+        raise ValueError(f"layout must be None or one of {LAYOUTS}, got {layout!r}")
+
+
+def pick_layout(pack: int, m: int, n: int, layout: Optional[str] = None) -> str:
+    """The layout a launch of packs of `pack` LPs of m x n takes: `layout`
+    where it fits (else ValueError), or the first of `LAYOUTS` that fits.
+    Builds the kernel's library (the sizes are the kernel's own)."""
+    _check_layout(layout)
+    lib = _library()
+    fits = [name for code, name in enumerate(LAYOUTS)
+            if lib.packed_simplex_layout_fits(code, pack, m, n)]
+    if layout is None:
+        return fits[0]
+    if layout not in fits:
+        raise ValueError(f"layout {layout!r} does not fit a pack of {pack} LPs of "
+                         f"{m}x{n} in one block's shared memory (fits: {fits})")
+    return layout
+
+
+def smem_bytes(pack: int, m: int, n: int, layout: str) -> int:
+    """Dynamic shared memory of one block in `layout`, in bytes."""
+    return int(_library().packed_simplex_smem_bytes(LAYOUTS.index(layout), pack, m, n))
 
 
 def _check_inputs(A, b, c, lo, hi, pack):
@@ -102,6 +140,7 @@ def packed_kernel_call(
     A, b, c, lo, hi, *,
     pack: int, slack0: int, max_iter: int, refactor_period: int,
     feas_tol: float, opt_tol: float, pivot_tol: float, bland_after: int,
+    layout: Optional[str] = None,
 ) -> torch.Tensor:
     """Run K3 on P packs of `pack` LPs; returns (P, pack, m + n + 2) int32
     rows ``[basis | vstat | status | niter]`` on the inputs' device.
@@ -109,9 +148,12 @@ def packed_kernel_call(
     Inputs, as the TPU kernel takes them: A (P, pack·m, n) — the pack's LPs
     stacked by rows —, b (P, pack, m), c/lo/hi (P, pack, n), all f32 and
     contiguous on one device.  CUDA tensors launch the kernel on the current
-    stream (no synchronisation); CPU tensors run `packed_plain`.
+    stream (no synchronisation) in `layout` (`pick_layout`: None takes the
+    first of `LAYOUTS` that fits; a forced one that does not fit raises
+    ValueError); CPU tensors run `packed_plain`.
     """
     _check_inputs(A, b, c, lo, hi, pack)
+    _check_layout(layout)
     kw = dict(pack=pack, slack0=slack0, max_iter=max_iter,
               refactor_period=refactor_period, feas_tol=feas_tol,
               opt_tol=opt_tol, pivot_tol=pivot_tol, bland_after=bland_after)
@@ -119,20 +161,28 @@ def packed_kernel_call(
         return packed_plain(A, b, c, lo, hi, **kw)
     if A.device.type != "cuda":
         raise ValueError(f"K3 runs on CUDA (kernel) or CPU (plain), not {A.device}")
+    m = A.shape[1] // pack
+    return _launch(_library(), A, b, c, lo, hi, layout=pick_layout(pack, m, A.shape[2], layout),
+                   **kw)
+
+
+def _launch(lib, A, b, c, lo, hi, *, pack, layout, slack0, max_iter, refactor_period,
+            feas_tol, opt_tol, pivot_tol, bland_after) -> torch.Tensor:
+    """One launch of `lib`'s kernel (the wrapper's, or a diagnostic build's)
+    on checked CUDA inputs in a layout that fits; counted in `launches`."""
     P, km, n = A.shape
     m = km // pack
-    lib = _library()
+    code = LAYOUTS.index(layout)
     out = torch.empty((P, pack, m + n + 2), dtype=torch.int32, device=A.device)
-    # the workspace lives in shared memory where the pack's fits, else here
-    ws_lps = P * pack if lib.packed_simplex_uses_global_workspace(pack, m, n) else 0
-    ws = torch.empty((ws_lps, lib.packed_simplex_workspace_floats(m, n)),
+    ws_lps = P * pack if layout == "global" else 0
+    ws = torch.empty((ws_lps, lib.packed_simplex_workspace_floats(code, pack, m, n)),
                      dtype=torch.float32, device=A.device)
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
         err = lib.packed_simplex_launch(
             A.data_ptr(), b.data_ptr(), c.data_ptr(), lo.data_ptr(), hi.data_ptr(),
             out.data_ptr(), ws.data_ptr() if ws_lps else None,
-            P, pack, m, n, slack0, max_iter, refactor_period,
+            P, pack, m, n, code, slack0, max_iter, refactor_period,
             feas_tol, opt_tol, pivot_tol, bland_after, stream,
         )
     if err != 0:

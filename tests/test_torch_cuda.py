@@ -20,7 +20,7 @@ from minilp_tpu_torch.canonical import canonicalize
 from minilp_tpu_torch.ops.kernels import batched_simplex as bs
 from minilp_tpu_torch.ops.kernels import packed_simplex as ps
 from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
-from minilp_tpu_torch.parallel import batched
+from minilp_tpu_torch.parallel import batched, scheduling
 from minilp_tpu_torch.presolve import presolve_problem
 from minilp_tpu_torch.utils.synth import (netlib_shaped_problem, network_flow_problem,
                                           random_batch)
@@ -275,15 +275,71 @@ def test_k3_kernel_matches_plain_batch(cuda):
     _k3_kernel_and_plain(cuda, A, b, c, lo, hi, slack0=48, pack=8)
 
 
+def test_k3_kernel_matches_plain_pack16(cuda):
+    """Packs of 16 LPs: blocks of 512 threads, whose refresh keeps T in the
+    workspace (the register tiles need at most 8 LPs a block)."""
+    A, b, c, lo, hi = random_batch(5, 32, 16, 48)
+    _k3_kernel_and_plain(cuda, A, b, c, lo, hi, slack0=48, pack=16)
+
+
+def _replicated_canonical(m, nv, lanes=8):
+    can = canonicalize(presolve_problem(netlib_shaped_problem(m, nv, 0.08, seed=2))[0])
+    tile = lambda x: np.broadcast_to(x, (lanes,) + x.shape).copy()
+    return tuple(tile(x) for x in (can.A, can.b, can.c, can.lo, can.hi)), can.nv
+
+
 @pytest.mark.parametrize("m,nv", [(30, 60), (60, 150)])
 def test_k3_kernel_matches_plain_replicated_canonical(cuda, m, nv):
     """A canonical instance replicated over two packs of 4; at 60 x 150 the
-    pack's workspace leaves shared memory for global memory."""
-    can = canonicalize(presolve_problem(netlib_shaped_problem(m, nv, 0.08, seed=2))[0])
-    tile = lambda x: np.broadcast_to(x, (8,) + x.shape).copy()
-    got = _k3_kernel_and_plain(cuda, *(tile(x) for x in (can.A, can.b, can.c, can.lo, can.hi)),
-                               slack0=can.nv, pack=4)
+    pack's A no longer fits shared memory beside its workspace, and m > 32
+    keeps both Newton temporaries."""
+    lp, slack0 = _replicated_canonical(m, nv)
+    got = _k3_kernel_and_plain(cuda, *lp, slack0=slack0, pack=4)
     assert (got.niter == got.niter[0]).all()  # identical lanes, identical pivots
+
+
+def _heterogeneous_bucket():
+    """The 24-row bucket of a mixed list, as `solve_heterogeneous` builds it."""
+    lps = []
+    for k, (count, m, nv) in enumerate([(16, 16, 48), (8, 24, 72)]):
+        A, b, c, lo, hi = random_batch(60 + k, count, m, nv)
+        lps += [(A[i], b[i], c[i], lo[i], hi[i]) for i in range(count)]
+    bucket = scheduling.bucket_lps(lps, pack=8)[1][1]
+    return bucket.batch, bucket.NV
+
+
+@pytest.mark.parametrize("case", ["batch16", "bucket", "canonical30x60", "canonical60x150"])
+def test_k3_layouts_bit_identical(cuda, case):
+    """Every layout of K3 that fits the pack gives the same out rows bit for
+    bit, the default (the first that fits) among them; a forced layout that
+    does not fit raises ValueError before any launch."""
+    pack = 8
+    if case == "batch16":
+        lp, slack0 = random_batch(5, 16, 16, 48), 48
+    elif case == "bucket":
+        lp, slack0 = _heterogeneous_bucket()
+    else:
+        lp, slack0 = _replicated_canonical(*{"canonical30x60": (30, 60),
+                                             "canonical60x150": (60, 150)}[case])
+        pack = 4
+    _B, m, n = lp[0].shape
+    args = ps.upload_packed(*lp, pack=pack, device=cuda)
+    kw = dict(pack=pack, slack0=slack0, max_iter=4000, **KW)
+    default = ps.packed_kernel_call(*args, **kw)
+    fits = []
+    for layout in ps.LAYOUTS:
+        before = ps.launches
+        try:
+            out = ps.packed_kernel_call(*args, layout=layout, **kw)
+        except ValueError:
+            assert ps.launches == before
+            continue
+        fits.append(layout)
+        torch.cuda.synchronize()
+        assert torch.equal(out, default), f"layout {layout!r} differs from the default"
+    assert fits[0] == ps.pick_layout(pack, m, n) and fits[-1] == "global"
+    assert ("staged" in fits) == (case != "canonical60x150")
+    assert int(default[..., -1].sum()) > 0  # pivots
 
 
 def test_pipelined_goes_through_k3(cuda):

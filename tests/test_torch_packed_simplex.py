@@ -25,6 +25,7 @@ from minilp_tpu.parallel.batched import make_random_batch_host
 from minilp_tpu.status import Status
 from minilp_tpu.utils.synth import degenerate_problem
 from minilp_tpu_torch.ops.kernels import packed_simplex as ps
+from minilp_tpu_torch.utils.synth import random_batch
 
 from .oracle import random_problem
 from .torch_helpers import rel_err
@@ -117,6 +118,22 @@ def test_pack_rule_decides_pivots():
     _assert_agree(got, solo, same_path=False)
 
 
+def test_bench_batch_unverified_lane_is_parity():
+    """Pack 58 (lanes 464-471) of `random_batch(1, 1024, 32, 96)`, the first
+    batch of `chip_smoke.py`'s phase 5 at bench.py's shape: lane 471 ends
+    OPTIMAL but fails the f64 check, so the batched path re-solves it on the
+    host.  The Pallas kernel leaves the same lane unverified, after the same
+    pivots on every lane: parity, not a fault of the port."""
+    lp = tuple(x[464:472] for x in random_batch(1, 1024, 32, 96))
+    kw = dict(pack=8, slack0=96, max_iter=2000, **KW)
+    ref = ref_ps.solve_batch_packed(*lp, interpret=True, **kw)
+    got = ps.solve_batch_packed(*lp, device="cpu", **kw)
+    _assert_agree(ref, got)
+    assert (got.status == int(Status.OPTIMAL)).all()
+    assert got.verified.tolist() == [True] * 7 + [False]
+    assert got.niter.tolist() == [161, 224, 182, 179, 184, 194, 159, 155]
+
+
 def _tensors(P=2, pack=4, m=4, nv=6, seed=0):
     A, b, c, lo, hi = make_random_batch_host(seed, P * pack, m, nv)
     return ps.upload_packed(A, b, c, lo, hi, pack=pack, device="cpu")
@@ -133,10 +150,10 @@ def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
     assert (out[..., -2] == int(Status.OPTIMAL)).all()
 
 
-@pytest.mark.parametrize("fault", ["dtype", "shape", "contiguous", "rows", "pack"])
+@pytest.mark.parametrize("fault", ["dtype", "shape", "contiguous", "rows", "pack", "layout"])
 def test_wrapper_rejects_bad_inputs(fault):
     A, b, c, lo, hi = _tensors()
-    pack = 4
+    pack, layout = 4, None
     if fault == "dtype":
         A = A.double()
     elif fault == "shape":
@@ -145,10 +162,13 @@ def test_wrapper_rejects_bad_inputs(fault):
         A = A.transpose(1, 2).contiguous().transpose(1, 2)
     elif fault == "rows":
         pack = 3  # 16 rows are not 3 LPs
-    else:
+    elif fault == "pack":
         pack = ps.MAX_PACK + 1  # more warps than one thread block holds
+    else:
+        layout = "registers"  # not one of ps.LAYOUTS
     with pytest.raises(ValueError):
-        ps.packed_kernel_call(A, b, c, lo, hi, pack=pack, slack0=6, max_iter=10, **KW)
+        ps.packed_kernel_call(A, b, c, lo, hi, pack=pack, slack0=6, max_iter=10,
+                              layout=layout, **KW)
 
 
 def test_batch_must_divide_into_packs():
