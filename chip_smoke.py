@@ -68,19 +68,46 @@ failure (exit code 1; no result line is printed then):
    Required: K3 launched, every lane certified, and a gap to HiGHS within
    1e-6 relative on 64 sampled lanes.  Also `solve_batch_certified` (K1 in
    batch mode) on one batch of 1024 and `solve_heterogeneous` on a mixed
-   list, each certified and checked against HiGHS on sampled LPs.
+   list, each certified and checked against HiGHS on sampled LPs;
+6. the incremental main path (`Solution.add_constraint` / `fix_var` /
+   `unfix_var` / `add_gomory_cut`), one node chain per case
+   (`utils/node_chain.py`: bench.py's 6 `add_constraint` cuts, `fix_var`
+   and `unfix_var` of the basic structural variable farthest above its
+   lower bound, one `add_gomory_cut`) after a cold solve: (a) the default options on both
+   `single_lp` instances (cold through K1, every re-solve on the host:
+   `dual_resolve_host` / `primal_resolve_host`, no kernel launch);
+   (b) `use_megakernel="always"` at 512x2048 (every node launches K1 warm,
+   `*_megakernel`); (c) `use_streaming="always"` at the 25fv47 shape (cold
+   and every node through K2, `*_streaming`).  Required per node: the
+   expected solve record (a fallback record fails the phase; an infeasible
+   cut may only end the chain, and HiGHS must agree), a certified solution
+   within 1e-6 relative of HiGHS on the edited LP, and in (b) and (c) the
+   kernel's launch count grown by one per node at least.  It logs each
+   node's wall, pivots and stages, each chain's means, and the warm
+   launches of K1 and K2.  Then (b)'s and (c)'s warm launches are run
+   again on the same inputs through the kernel (grid and one block) and
+   its plain version, as in phases 3 and 3b: the first launch, the first
+   after each growth of the row capacity (the same status, certificate
+   and objective), and every launch whose claim the driver polished (the
+   same status; each claim's f64 distance from the certificate is logged,
+   and where one claim passes it and the other not, the pivot at which the
+   two paths part).
 
 It prints the kernel table as one JSON line (each kernel's launches on its
-main path, its time and its plain version's at the stated shape, and the
-bound of that run: the larger of its bytes over the card's memory rate and
-its floating-point operations, counted from the run's pivots, over the
-f32 peak), the card's name and power limit as `nvidia-smi` gives them, and,
+main paths, by path in `launches_by_path`: K1's and K2's cold solves of
+phases 4 and 4b and warm re-solves of phase 6, K3's batched path; its time
+and its plain version's at the stated shape, and the bound of that run:
+the larger of its bytes over the card's memory rate and its floating-point
+operations, counted from the run's pivots, over the f32 peak), the card's
+name and power limit as `nvidia-smi` gives them, and,
 last, `{"ok": true, "device": {...}}`.
 Without a CUDA device, or without the package beside it, it exits nonzero.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -109,7 +136,9 @@ K3_PIVOTS = {f"batch{BATCH}_32x128": 178961, "netlib_shaped_60x150_replicated": 
              "heterogeneous_bucket_16x80": 2512}
 # the lanes of phase 5's first batch (seed 1) whose OPTIMAL claim from K3
 # fails the f64 check: 471 as in the plain version and the Pallas kernel,
-# 293 after a pivot path of its own (ROADMAP Queue 3)
+# 293 after a pivot path of its own, whose ratio test parts from the plain
+# version's at pivot 127 on K3's f32 x_B of one row (`utils/k3_lane.py`;
+# ROADMAP Queue 3)
 K3_UNVERIFIED_SEED1 = [293, 471]
 
 
@@ -200,23 +229,50 @@ def streaming_bound(m, n, majors, refreshes, minor_k=16):
     return bound(flops, nbytes)
 
 
-def assert_agree(tag, kernel, plain):
+def assert_agree(tag, kernel, plain, polished=False):
     """The kernel's and the plain version's (status, verified, objective)
     per LP: the same status and `verified` flag, some LP verified, and the
-    certified objectives within REL_KERNEL relative.  Returns the largest
-    absolute and relative objective differences."""
+    certified objectives within REL_KERNEL relative.  A `polished` launch
+    (one whose claim failed the certificate on the main path) needs only
+    the same status: after many f32 pivots the two paths may part, and
+    either claim may then miss the certificate (`Compare.parting` logs
+    where).  Returns the largest absolute and relative objective
+    differences."""
     (sk, vk, ok_), (sp, vp, op) = ([np.atleast_1d(x) for x in r] for r in (kernel, plain))
     if not (sk == sp).all():
         raise AssertionError(f"{tag}: status kernel {sk} vs plain {sp}")
-    if not (vk == vp).all():
-        raise AssertionError(f"{tag}: verified kernel {vk} vs plain {vp}")
-    if not vk.any():
-        raise AssertionError(f"{tag}: no LP verified (status {sk})")
-    err = np.abs(ok_ - op)[vk]
-    rel = err / (1.0 + np.abs(op[vk]))
+    both = vk & vp
+    if not polished:
+        if not (vk == vp).all():
+            raise AssertionError(f"{tag}: verified kernel {vk} vs plain {vp}")
+        if not vk.any():
+            raise AssertionError(f"{tag}: no LP verified (status {sk})")
+    if not both.any():
+        return 0.0, 0.0
+    err = np.abs(ok_ - op)[both]
+    rel = err / (1.0 + np.abs(op[both]))
     if rel.max() > REL_KERNEL:
         raise AssertionError(f"{tag}: certified objectives differ by {rel.max():.3e}")
     return float(err.max()), float(rel.max())
+
+
+def certificate_gaps(A, b, c, lo, hi, basis, vstat):
+    """How far one LP's claimed basis is from the f64 certificate, whose
+    tolerance is 1e-7 (`_verify_f64`): the largest bound violation of x_B
+    and the largest wrong-signed reduced cost, in exact f64, then the basic
+    variable of that bound violation."""
+    from minilp_tpu_torch.canonical import nonbasic_values
+    from minilp_tpu_torch.status import VarStat
+
+    A, b, c, lo, hi = (np.asarray(x, dtype=np.float64) for x in (A, b, c, lo, hi))
+    B = A[:, basis]
+    xB = np.linalg.solve(B, b - A @ nonbasic_values(vstat, lo, hi))
+    d = c - np.linalg.solve(B.T, c[basis]) @ A
+    viol = np.maximum(np.maximum(lo[basis] - xB, xB - hi[basis]), 0.0)
+    wrong = np.where(vstat == int(VarStat.AT_LOWER), -d, 0.0)
+    wrong = np.where(vstat == int(VarStat.AT_UPPER), d, wrong)
+    wrong = np.where(vstat == int(VarStat.FREE), np.abs(d), wrong)
+    return float(viol.max()), float(wrong.max(initial=0.0)), int(basis[np.argmax(viol)])
 
 
 def same_k1_bits(tag, wide, one, m):
@@ -245,10 +301,11 @@ class Compare:
         self.times = {}
         self.niter = {}  # the kernel's pivots per LP, per case
 
-    def run(self, tag, A, b, c, lo, hi, *, slack0, max_iter, warm=None, reps=1):
+    def run(self, tag, A, b, c, lo, hi, *, slack0, max_iter, warm=None, reps=1,
+            polished=False):
         torch, bs = self.torch, self.bs
         dev = torch.device(DEVICE)
-        t = lambda x, dt=np.float32: torch.tensor(np.asarray(x, dtype=dt), device=dev)
+        t = lambda x, dt=np.float32: torch.tensor(np.ascontiguousarray(x, dtype=dt), device=dev)
         args = [t(x) for x in (A, b, c, lo, hi)]
         warm_t = None
         if warm is not None:
@@ -268,9 +325,9 @@ class Compare:
             h = out.cpu().numpy()
             status = h[:, m + n]
             obj, ver, _x = bs._verify_f64(A, b, c, lo, hi, h[:, :m], h[:, m:m + n], status)
-            res.append((h[:, :m], status, h[:, m + n + 1], obj, ver))
-        (bk, sk, nk, ok_, vk), (bp, sp, np_, op, vp) = res
-        err, rel = assert_agree(tag, (sk, vk, ok_), (sp, vp, op))
+            res.append((h[:, :m], status, h[:, m + n + 1], obj, ver, h[:, m:m + n]))
+        (bk, sk, nk, ok_, vk, xk), (bp, sp, np_, op, vp, xp) = res
+        err, rel = assert_agree(tag, (sk, vk, ok_), (sp, vp, op), polished)
         self.max_abs_err = max(self.max_abs_err, err)
         same = int(sum((np.sort(x) == np.sort(y)).all() for x, y in zip(bk, bp)))
         self.times[tag] = (ms_k, ms_p)
@@ -279,6 +336,122 @@ class Compare:
             f"verified={int(vk.sum())}/{len(vk)} identical_bases={same}/{len(vk)} "
             f"pivots kernel={int(nk.sum())} plain={int(np_.sum())} "
             f"max_rel_obj_diff={rel:.3e} kernel_ms={ms_k:.3f} plain_ms={ms_p:.3f}")
+        for i in np.flatnonzero(~(vk & vp))[:4]:
+            gaps = [certificate_gaps(A[i], b[i], c[i], lo[i], hi[i], basis[i], vstat[i])
+                    for basis, vstat in ((bk, xk), (bp, xp))]
+            conds = [np.linalg.cond(np.asarray(A[i], dtype=np.float64)[:, basis[i]])
+                     for basis in (bk, bp)]
+            log(f"  {tag}: LP {i} verified kernel={bool(vk[i])} plain={bool(vp[i])}; f64 "
+                f"(primal, dual) violation of the claim: kernel {gaps[0]}, plain {gaps[1]} "
+                f"(certificate tolerance 1e-7); condition number of the final basis "
+                f"kernel {conds[0]:.3e}, plain {conds[1]:.3e}")
+        if A.shape[0] == 1 and vk[0] != vp[0]:
+            self.parting(tag, args, warm_t, kw, (int(nk[0]), int(np_[0])), m, n,
+                         tuple(x[0] for x in (A, b, c, lo, hi)))
+
+    def parting(self, tag, args, warm_t, kw, pivots, m, n, lp):
+        """Log where the kernel's path (`pivots` its and the plain
+        version's pivots) goes astray on the LP `lp`: the first pivot at
+        which its out rows and the plain version's part (bisecting
+        `max_iter`), then, every 32 pivots of its own path from there, the
+        exact bound violation of its basis, and the first pivot at which
+        that exceeds feas_tol.  At each of the two pivots, what each side
+        did (entering, leaving, bound flips) and the ratio test in exact f64
+        from the basis before it (`explain`)."""
+        bs, ftol = self.bs, kw["feas_tol"]
+        run = lambda fn, k: fn(*args, warm_t, **dict(kw, max_iter=k))
+        kern = lambda k: run(bs._launch, k)[0].cpu().numpy()[0]
+        plain = lambda k: run(bs.simplex_plain, k).cpu().numpy()[0]
+        violation = lambda row: certificate_gaps(*lp, row[:m], row[m:m + n])
+
+        def first(lo_k, hi_k, parts):
+            """The smallest k in (lo_k, hi_k] with parts(k), given parts(hi_k)."""
+            while hi_k - lo_k > 1:
+                mid = (lo_k + hi_k) // 2
+                lo_k, hi_k = (lo_k, mid) if parts(mid) else (mid, hi_k)
+            return hi_k
+
+        k = first(0, max(pivots), lambda k: not np.array_equal(kern(k), plain(k)))
+        log(f"  {tag}: the kernel's and the plain version's paths part at pivot {k} "
+            f"of {pivots}: " + self.explain(lp, kern(k - 1), {"kernel": kern(k),
+                                                              "plain": plain(k)}, m, n, kw))
+        scan = {}
+        for j in [*range(k, pivots[0], 32), pivots[0]]:
+            scan[j] = violation(kern(j))
+        keys = list(scan)
+        changes = [j for i, j in enumerate(keys)
+                   if scan[j][0] > 0.0 and (i == 0 or scan[j] != scan[keys[i - 1]])]
+        log(f"  {tag}: the kernel's path from pivot {k}, every 32 pivots, where it changes: "
+            f"(pivots: largest exact bound violation of its basis, that basic variable) "
+            + ", ".join(f"{j}: {scan[j][0]:.3e} x{scan[j][2]}" for j in changes))
+        over = [i for i, j in enumerate(keys) if scan[j][0] > ftol]
+        if over and over[0] > 0:
+            j = first(keys[over[0] - 1], keys[over[0]], lambda j: violation(kern(j))[0] > ftol)
+            before, after = kern(j - 1), kern(j)
+            watch = violation(after)[2]
+            log(f"  {tag}: the kernel's basis first leaves its bounds by more than feas_tol "
+                f"at pivot {j} ({violation(after)[0]:.3e}, x{watch}): "
+                + self.explain(lp, before, {"kernel": after}, m, n, kw, watch=watch))
+            from minilp_tpu_torch.status import VarStat
+
+            entered = sorted(set(after[:m].tolist()) - set(before[:m].tolist()))
+            if (watch in before[:m] and watch in after[:m] and len(entered) == 1
+                    and int(before[m + entered[0]]) in (VarStat.AT_LOWER, VarStat.AT_UPPER)):
+                # the kernel's own f32 state from its workspace (after four
+                # m x m blocks: x_B, loB, hiB, cB, w), after pivot j - 1 and
+                # after pivot j; w is still pivot j's FTRAN column, and the
+                # entering row holds its new value, so the step t and the
+                # watched row's x_B after the refresh before pivot j follow
+                q = entered[0]
+                at = lambda row, v: int(np.flatnonzero(row[:m] == v)[0])
+                i, r = at(after, watch), at(after, q)
+                ws0, ws1 = (run(bs._launch, k)[1].cpu().numpy()[4 * m * m:]
+                            for k in (j - 1, j))
+                vq = int(before[m + q])
+                up = vq == VarStat.AT_LOWER  # it enters moving away from its bound
+                base, s = (float(lp[3][q]), 1.0) if up else (float(lp[4][q]), -1.0)
+                t = (float(ws1[r]) - base) * s
+                x_ref = float(ws1[i]) - t * (-s * float(ws1[4 * m + i]))
+                log(f"  {tag}: pivot {j} in the kernel's f32 state: x{watch}'s row {i}: "
+                    f"bounds [{float(ws1[m + i])!r}, {float(ws1[2 * m + i])!r}], "
+                    f"x_B {float(ws0[i])!r} after pivot {j - 1} and {float(ws1[i])!r} after "
+                    f"pivot {j}, w {float(ws1[4 * m + i])!r}; entering x{q} (status {vq}) "
+                    f"at row {r}: w {float(ws1[4 * m + r])!r}, new value {float(ws1[r])!r}, "
+                    f"so the step t={t!r} and x{watch}'s x_B before it {x_ref!r}")
+
+    @staticmethod
+    def explain(lp, before, afters, m, n, kw, watch=None):
+        """What each side did between the out row `before` and its row in
+        `afters`, and, where some side entered a variable, that column's
+        ratio test in exact f64 from `before`: the step t_rows, the tie
+        window, the rule's row, and the ratio, |w| and x_B of each side's
+        leaving row and of the row of the basic variable `watch`."""
+        from minilp_tpu_torch.utils.k3_lane import f64_ratio_test
+
+        basis = before[:m]
+        b0, did, q = set(basis.tolist()), [], None
+        rows = {}
+        for side, after in afters.items():
+            b1 = set(after[:m].tolist())
+            flips = [int(j) for j in np.flatnonzero(before[m:m + n] != after[m:m + n])
+                     if j not in b0 | b1]
+            entered, left = sorted(b1 - b0), sorted(b0 - b1)
+            did.append(f"{side} entered {entered} left {left} flipped {flips}")
+            if entered:
+                q = entered[0]
+                rows[f"{side}'s leaving row"] = int(np.flatnonzero(basis == left[0])[0])
+        if watch is not None and watch in b0:
+            rows[f"row of x{watch}"] = int(np.flatnonzero(basis == watch)[0])
+        if q is None:
+            return "; ".join(did)
+        xB, w, ratio, r64 = f64_ratio_test(lp, basis, before[m:m + n], q, kw["feas_tol"],
+                                           kw["pivot_tol"])
+        t = float(ratio.min())
+        return "; ".join(did) + (
+            f"; entering x{q} in exact f64: t_rows={t!r} window={t * 1.0001 + 1e-6!r} "
+            f"rule's row {r64}; " + ", ".join(
+                f"{name} {r}: ratio={float(ratio[r])!r} |w|={abs(float(w[r]))!r} "
+                f"x_B={float(xB[r])!r}" for name, r in rows.items()))
 
 
 def same_bits(tag, wide, one):
@@ -319,12 +492,13 @@ class CompareK2:
             launch.hi[None], basis[None], vstat[None], mon[:1])
         return basis, vstat, int(mon[0]), int(mon[1]), float(obj[0]), bool(ver[0]), x[0]
 
-    def check(self, tag, rk, rp):
-        err, rel = assert_agree(tag, (rk[2], rk[5], rk[4]), (rp[2], rp[5], rp[4]))
+    def check(self, tag, rk, rp, polished=False):
+        err, rel = assert_agree(tag, (rk[2], rk[5], rk[4]), (rp[2], rp[5], rp[4]), polished)
         self.max_abs_err = max(self.max_abs_err, err)
         return rel
 
-    def run(self, tag, can, *, hi=None, warm_state=None, repeat=False, **over):
+    def run(self, tag, can, *, hi=None, warm_state=None, repeat=False, polished=False,
+            **over):
         """K2 and `stream_plain` on the first launch of `Problem.solve()`'s
         K2 route for `can` (upper bounds `hi`, `warm_state` and the options
         in `over` replacing the driver's where given)."""
@@ -351,7 +525,7 @@ class CompareK2:
                 f"kernel_ms={ms_k2:.3f}")
         out_p, ms_p = timed(torch, call(ss.stream_plain))
         rp = self.result(out_p, launch)
-        rel = self.check(tag, rk, rp)
+        rel = self.check(tag, rk, rp, polished)
         same = bool((np.sort(rk[0]) == np.sort(rp[0])).all())
         self.times[tag] = (ms_k, ms_p)
         self.counts[tag] = (m, n, rk[3], majors, refreshes)
@@ -699,6 +873,174 @@ def batched_main_path(torch, batch=BATCH):
     return k3_launches
 
 
+#: phase 6's node chains: tag -> (problem, options, cold-solve event, the
+#: re-solves' event suffix); (a) the default route, (b) K1 warm, (c) K2 warm
+CHAINS = {
+    "a_default_256x1024": ("256x1024", {}, "cold_solve_megakernel", "_host"),
+    "a_default_512x2048": ("512x2048", {}, "cold_solve_megakernel", "_host"),
+    "b_megakernel_512x2048": ("512x2048", {"use_megakernel": "always"},
+                              "cold_solve_megakernel", "_megakernel"),
+    "c_streaming_25fv47": ("25fv47", {"use_streaming": "always"},
+                           "cold_solve_streaming", "_streaming"),
+}
+
+
+def chain_problem(shape):
+    from minilp_tpu_torch.utils.synth import netlib_shaped_problem
+
+    if shape in SINGLE_LP:
+        return netlib_shaped_problem(*SINGLE_LP[shape], seed=11)
+    return netlib_shaped_problem(*NETLIB[shape], seed=1)
+
+
+@contextlib.contextmanager
+def recording_warm_launches():
+    """Record the warm K1 and K2 launches that the incremental path makes
+    through the driver's routes: a list of dicts (route, a copy of the
+    canonical LP, the warm state, whether the driver polished the claim)."""
+    from minilp_tpu_torch.engine import driver
+
+    names = ("_try_megakernel_solve", "_try_streaming_solve", "_host_polish_from_basis")
+    saved = {name: getattr(driver, name) for name in names}
+    seen, current = [], []
+
+    def route(name):
+        def call(can, opts, warm_state=None):
+            if warm_state is None:
+                return saved[name](can, opts)
+            seen.append(dict(route=name, polished=False,
+                             warm=tuple(np.array(x) for x in warm_state),
+                             can=dataclasses.replace(can, A=can.A.copy(), b=can.b.copy(),
+                                                     c=can.c.copy(), lo=can.lo.copy(),
+                                                     hi=can.hi.copy())))
+            current.append(seen[-1])
+            try:
+                return saved[name](can, opts, warm_state=warm_state)
+            finally:
+                current.pop()
+        return call
+
+    def polish(*args, **kw):
+        if current:
+            current[-1]["polished"] = True
+        return saved["_host_polish_from_basis"](*args, **kw)
+
+    driver._try_megakernel_solve = route("_try_megakernel_solve")
+    driver._try_streaming_solve = route("_try_streaming_solve")
+    driver._host_polish_from_basis = polish
+    try:
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(driver, name, fn)
+
+
+def compare_warm_launches(tag, seen, max_iter, cmp_k1, cmp_k2):
+    """Hold a chain's warm kernel launches against their plain versions on
+    the same inputs: the first, the first at each new padded row count (the
+    row capacity grew), and every one whose claim the driver polished
+    (`assert_agree`'s `polished`)."""
+    shapes = set()
+    for i, launch in enumerate(seen):
+        can, (basis, vstat, Binv) = launch["can"], launch["warm"]
+        pick = i == 0 or can.M not in shapes or launch["polished"]
+        shapes.add(can.M)
+        if not pick:
+            continue
+        name = f"{tag} warm launch {i} M={can.M}" + (" (polished)" if launch["polished"] else "")
+        if launch["route"] == "_try_megakernel_solve":
+            cmp_k1.run(name, can.A[None], can.b[None], can.c[None], can.lo[None], can.hi[None],
+                       slack0=can.nv, max_iter=max_iter(can.M, can.N),
+                       warm=(basis[None], vstat[None], Binv[None]),
+                       polished=launch["polished"])
+        else:
+            cmp_k2.run(name, can, warm_state=(basis, vstat, Binv),
+                       polished=launch["polished"])
+
+
+def incremental_main_path(torch, rec_path, cmp_k1, cmp_k2, chains=CHAINS):
+    """Phase 6: one node chain per case of `chains` (module docstring), the
+    kernel chains' warm launches then held against the plain versions by
+    `cmp_k1` and `cmp_k2`; returns the warm launches of K1 and K2 over all
+    chains."""
+    from minilp_tpu_torch import SolverOptions
+    from minilp_tpu_torch.ops.kernels import batched_simplex as bs
+    from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
+    from minilp_tpu_torch.utils.node_chain import highs_outcome, run_chain
+
+    log("[6] incremental main path: node chains through the incremental API on the card")
+    warm = {"batched_simplex": 0, "streaming_simplex": 0}
+    for tag, (shape, options, cold_event, suffix) in chains.items():
+        prob = chain_problem(shape)
+        prob.options = SolverOptions(device=DEVICE, **options)
+        n_rec = len(rec_path.read_text().splitlines()) if rec_path.exists() else 0
+        t0 = time.perf_counter()
+        sol = prob.solve()
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        events = [json.loads(line)["event"]
+                  for line in rec_path.read_text().splitlines()[n_rec:]]
+        if events != [cold_event] or not sol._engine.certified:
+            raise AssertionError(f"{tag}: cold solve records {events}, "
+                                 f"certified {sol._engine.certified}")
+        k1, k2, cold_pivots = bs.launches, ss.launches, sol._engine.iterations()
+        with recording_warm_launches() as seen:
+            nodes = run_chain(sol, log_path=rec_path, sync=torch.cuda.synchronize)
+        k1, k2 = bs.launches - k1, ss.launches - k2
+        for i, node in enumerate(nodes):
+            want = ("primal_resolve" if node.edit == "unfix_var" else "dual_resolve") + suffix
+            outcome, ref = highs_outcome(node.problem)
+            name = f"{tag} node {i} {node.edit}"
+            if node.outcome != "optimal":
+                # an infeasible cut ends the chain; an f32 kernel's INFEASIBLE
+                # is confirmed by an exact engine, whose record it then is
+                ok = (node.outcome == "Infeasible" and outcome == "infeasible"
+                      and i == len(nodes) - 1 and node.edit == "add_constraint"
+                      and node.events[-1:] in ([want], ["dual_resolve"]))
+                if not ok:
+                    raise AssertionError(f"{name}: {node.outcome}, HiGHS {outcome}, "
+                                         f"records {node.events}")
+                log(f"  {name}: {node.outcome} (HiGHS {outcome}) records={node.events} "
+                    f"wall_s={node.wall_s:.4f}")
+                continue
+            if node.events != [want]:
+                raise AssertionError(f"{name}: solve records {node.events}, expected {[want]}")
+            if not node.certified:
+                raise AssertionError(f"{name}: solution not certified")
+            if outcome != "optimal" or abs(node.objective - ref) > REL_HIGHS * (1.0 + abs(ref)):
+                raise AssertionError(f"{name}: objective {node.objective!r} vs HiGHS "
+                                     f"{outcome} {ref!r}")
+            log(f"  {name}: {node.events[0]} wall_s={node.wall_s:.4f} pivots={node.pivots} "
+                f"certified={node.certified} objective={node.objective!r} "
+                f"rel_gap_highs={abs(node.objective - ref) / (1.0 + abs(ref)):.3e} "
+                f"stages={node.stages}")
+        done = [n for n in nodes if n.outcome == "optimal"]
+        cuts = [n for n in done if n.edit == "add_constraint"]
+        if suffix == "_host" and (k1 or k2):
+            raise AssertionError(f"{tag}: host re-solves launched K1 {k1} and K2 {k2} times")
+        if suffix == "_megakernel" and (k1 < len(done) or k2):
+            raise AssertionError(f"{tag}: {k1} K1 and {k2} K2 launches for {len(done)} nodes")
+        if suffix == "_streaming" and (k2 < len(done) or k1):
+            raise AssertionError(f"{tag}: {k2} K2 and {k1} K1 launches for {len(done)} nodes")
+        warm["batched_simplex"] += k1
+        warm["streaming_simplex"] += k2
+        mean = lambda xs: float(np.mean(xs)) if xs else float("nan")
+        log(f"  {tag}: cold_s={cold_s:.3f} cold_pivots={cold_pivots} "
+            f"nodes={len(nodes)} (cuts {len(cuts)}) "
+            f"mean_wall_s={mean([n.wall_s for n in done]):.4f} "
+            f"mean_pivots={mean([n.pivots for n in done]):.1f} "
+            f"cuts: mean_wall_s={mean([n.wall_s for n in cuts]):.4f} "
+            f"mean_pivots={mean([n.pivots for n in cuts]):.1f} "
+            f"warm launches K1={k1} K2={k2}")
+        if k1 + k2 < len(seen):
+            raise AssertionError(f"{tag}: {len(seen)} warm kernel calls recorded, "
+                                 f"{k1 + k2} launches counted")
+        compare_warm_launches(tag, seen, prob.options.effective_max_iter, cmp_k1, cmp_k2)
+    log(f"  warm launches on the incremental path: K1 {warm['batched_simplex']}, "
+        f"K2 {warm['streaming_simplex']}; {smi_name_power()}")
+    return warm
+
+
 def main() -> int:
     if not (HERE / "minilp_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: the minilp_tpu_torch package is not beside this "
@@ -709,6 +1051,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 3
+    t_start = time.perf_counter()
     sys.path.insert(0, str(HERE))
     import minilp_tpu_torch
     from minilp_tpu_torch import OptimizationDirection, Problem, ComparisonOp, SolverOptions
@@ -853,6 +1196,12 @@ def main() -> int:
     # ---- 5. the batched main path: solve_batches_pipelined through K3 -------
     k3_launches = batched_main_path(torch)
 
+    # ---- 6. the incremental main path: warm re-solves through the API -------
+    bs.launches = ss.launches = 0  # counts from here on are the incremental path's
+    warm = incremental_main_path(torch, rec_path, cmp_, cmp2)
+    if warm["batched_simplex"] <= 0 or warm["streaming_simplex"] <= 0:
+        raise AssertionError(f"the incremental path launched K1 and K2 {warm}")
+
     ms_k, ms_p = cmp_.times["single_lp_512x2048"]
     k1_bound = dense_simplex_bound(cmp_.niter["single_lp_512x2048"], 504, 2048)
     ms2_k, ms2_p = cmp2.times["25fv47"]
@@ -860,19 +1209,25 @@ def main() -> int:
     tag3 = f"batch{BATCH}_32x128"
     ms3_k, ms3_p = cmp3.times[tag3]
     k3_bound = dense_simplex_bound(cmp3.niter[tag3], BATCH_M, BATCH_M + BATCH_NV)
-    row = lambda name, tpu_line, launches, cmp, ms, plain_ms, bnd: {
+    by_path = {"batched_simplex": {"cold": k1_launches, "incremental": warm["batched_simplex"]},
+               "streaming_simplex": {"cold": k2_launches,
+                                     "incremental": warm["streaming_simplex"]},
+               "packed_simplex": {"batched": k3_launches}}
+    row = lambda name, tpu_line, cmp, ms, plain_ms, bnd: {
         "name": name, "route": "cuda", "source": f"minilp_tpu_torch/csrc/{name}.cu",
         "replaces": f"minilp_tpu/ops/kernels/{name}.py:{tpu_line}",
-        "launches": launches, "max_abs_err": cmp.max_abs_err, "ms": ms,
+        "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
+        "max_abs_err": cmp.max_abs_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
         # no single PyTorch call solves an LP
         "library_ms": None,
     }
     kernels = {"kernels": [
-        row("batched_simplex", 68, k1_launches, cmp_, ms_k, ms_p, k1_bound),
-        row("streaming_simplex", 134, k2_launches, cmp2, ms2_k, ms2_p, k2_bound),
-        row("packed_simplex", 60, k3_launches, cmp3, ms3_k, ms3_p, k3_bound),
+        row("batched_simplex", 68, cmp_, ms_k, ms_p, k1_bound),
+        row("streaming_simplex", 134, cmp2, ms2_k, ms2_p, k2_bound),
+        row("packed_simplex", 60, cmp3, ms3_k, ms3_p, k3_bound),
     ]}
+    log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))
     log(smi_name_power())
     log(json.dumps({"ok": True, "device": {

@@ -23,8 +23,9 @@ Example (the API spec, as in the reference's lib.rs doc-tests):
     (1.0, 3.0)
 
 The incremental re-solve surface (`Solution.add_constraint`, `fix_var`,
-`unfix_var`, `add_gomory_cut`) is not ported yet and raises
-`NotImplementedError` (ROADMAP.md, Queue 1 item 5).
+`unfix_var`, `add_gomory_cut`) re-solves warm from the solution's basis
+(`engine/incremental.py`): on the host first, or through K1 or K2 restarted
+warm when the options force a kernel.
 """
 
 from __future__ import annotations
@@ -328,31 +329,32 @@ class Solution:
     __iter__ = iter
 
     # -- incremental API ---------------------------------------------------------
-    # Not ported yet: the warm re-solves (engine/dual.py, engine/incremental.py
-    # of the JAX package) are ROADMAP.md Queue 1 item 5.
-    def _not_ported(self, name: str):
-        raise NotImplementedError(
-            f"Solution.{name} is not ported to minilp_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 item 5: incremental API)"
-        )
-
     def add_constraint(self, expr: ExprLike, op: ComparisonOp, rhs: float) -> "Solution":
-        """Add a constraint and re-optimize (`Solution::add_constraint` [API]).
-        Not ported yet: raises `NotImplementedError`."""
-        self._not_ported("add_constraint")
+        """Add a constraint to the solved problem and re-optimize from the current
+        basis via dual simplex (`Solution::add_constraint` [API], SURVEY.md §4.2).
+        Consumes self (further use of this object is undefined), returns the new
+        Solution.  Raises `Infeasible` if the new constraint makes the LP infeasible.
+        """
+        if isinstance(expr, Variable):
+            expr = LinearExpr.from_term(1.0, expr)
+        elif not isinstance(expr, LinearExpr):
+            expr = LinearExpr(expr)
+        return self._engine.add_constraint(self, expr.terms(), op, float(rhs))
 
     def fix_var(self, var: Variable, val: float) -> "Solution":
-        """Fix ``var`` to ``val`` and re-optimize (`Solution::fix_var` [API]).
-        Not ported yet: raises `NotImplementedError`."""
-        self._not_ported("fix_var")
+        """Temporarily fix ``var`` to ``val`` and re-optimize (warm-started).
+        (`Solution::fix_var` [API]).  Raises `Infeasible` when no feasible point
+        has ``var == val``."""
+        return self._engine.fix_var(self, var.idx, float(val))
 
     def unfix_var(self, var: Variable) -> Tuple[bool, "Solution"]:
-        """Undo `fix_var` and re-optimize (`Solution::unfix_var` [API]).
-        Not ported yet: raises `NotImplementedError`."""
-        self._not_ported("unfix_var")
+        """Undo `fix_var`: restore the variable's original bounds and re-optimize.
+        Returns ``(changed, solution)`` where ``changed`` says whether the optimal
+        objective moved (`Solution::unfix_var` returning a flag [API])."""
+        return self._engine.unfix_var(self, var.idx)
 
     def add_gomory_cut(self, var: Variable) -> "Solution":
-        """Append a Gomory cut on ``var`` and re-optimize
-        (`Solution::add_gomory_cut` [API]).  Not ported yet: raises
-        `NotImplementedError`."""
-        self._not_ported("add_gomory_cut")
+        """Derive a Gomory mixed-integer cut from the basic row of ``var``
+        (which must be basic with a fractional value), append it, and re-optimize
+        via dual simplex (`Solution::add_gomory_cut` [API], SURVEY.md §3.2)."""
+        return self._engine.add_gomory_cut(self, var.idx)

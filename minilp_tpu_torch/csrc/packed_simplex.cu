@@ -68,8 +68,10 @@
 // later steps.
 //
 // Built with -DK3_CLOCKS, the kernel also sums clock64() cycles per phase of
-// an iteration over every running LP (`packed_simplex_clocks`); the normal
-// build carries none of it.
+// an iteration over every running LP (`packed_simplex_clocks`); built with
+// -DK3_PROBE, it records one LP's ratio test at one pivot
+// (`packed_simplex_probe_at`, `packed_simplex_probe_read`).  The normal
+// build carries neither.
 
 #include "simplex_common.cuh"
 
@@ -117,6 +119,16 @@ __device__ unsigned long long g_clocks[kPhases + 2];
 #define K3_TICK(ph) \
   do {              \
   } while (0)
+#endif
+
+#ifdef K3_PROBE
+// The LP (its index in the launch) and its pivot count before the step whose
+// ratio test is recorded; the record: a header (written, q, r, t_rows, the
+// tie window, flip, s, the entering range, phase, refresh, Bland, d_q), then
+// (x_B, w, ratio, target) per row, for the first kProbeRows rows.
+constexpr int kProbeHead = 12, kProbeRows = 64;
+__device__ long long g_probe_at[2] = {-1, -1};
+__device__ float g_probe[kProbeHead + 4 * kProbeRows];
 #endif
 
 // ---- warp reductions: fixed xor order, the result in every lane ----------
@@ -604,6 +616,24 @@ packed_kernel(const float* __restrict__ A_all, const float* __restrict__ b_all,
       unbounded = !isfinite(min_nan(t_rows, rng_q));
       const float t = flip ? rng_q : L.pr[r];
       const float tgt_r = L.ym[r];
+#ifdef K3_PROBE
+      // the last iteration at this pivot count is the one that steps
+      if ((long long)lp == g_probe_at[0] && niter == g_probe_at[1]) {
+        for (int i = lane; i < m && i < kProbeRows; i += 32) {
+          float* row = g_probe + kProbeHead + 4 * i;
+          row[0] = L.xB[i];
+          row[1] = L.w[i];
+          row[2] = L.pr[i];
+          row[3] = L.ym[i];
+        }
+        if (lane == 0) {
+          const float head[kProbeHead] = {1.f, (float)q, (float)r, t_rows, tie_cut,
+                                          flip ? 1.f : 0.f, s, rng_q, (float)phase,
+                                          do_refresh ? 1.f : 0.f, bland ? 1.f : 0.f, dq};
+          for (int h = 0; h < kProbeHead; ++h) g_probe[h] = head[h];
+        }
+      }
+#endif
       K3_TICK(P_RATIO);
 
       if (flip && !unbounded) {
@@ -833,6 +863,28 @@ int packed_simplex_clocks(unsigned long long* host) {
   if (err == cudaSuccess) err = cudaMemcpyFromSymbol(host, g_clocks, sizeof(g_clocks));
   const unsigned long long zero[kPhases + 2] = {};
   if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_clocks, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif
+
+#ifdef K3_PROBE
+// Record the ratio test of LP `lp` (its index in the launch) at the step
+// taken with `niter` pivots done, in the launches that follow; clears the
+// record.  Synchronises.
+int packed_simplex_probe_at(long long lp, long long niter) {
+  const long long at[2] = {lp, niter};
+  const float zero[kProbeHead + 4 * kProbeRows] = {};
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_probe_at, at, sizeof(at));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_probe, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+
+// Copy the record (kProbeHead + 4 * kProbeRows floats) into `host`.
+// Synchronises.
+int packed_simplex_probe_read(float* host) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(host, g_probe, sizeof(g_probe));
   return static_cast<int>(err);
 }
 #endif

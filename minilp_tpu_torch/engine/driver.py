@@ -15,6 +15,11 @@ The algorithmic fallbacks stay — they act on a result, not on a fault: an
 uncertified claim goes to the exact polish, any other kernel claim to the
 f64 engine.
 
+The handle (`EngineHandle`) owns the canonical form and the final state, and
+carries the incremental re-solve API (`engine/incremental.py`): host-first
+warm re-solves, then K1 or K2 restarted warm from (basis, vstat, B⁻¹), then
+the f64 torch engines (`engine/dual.py`, `engine/primal.py`).
+
 Not ported yet (each raises `NotImplementedError` or routes past it):
 `engine="pdhg"` and the PDHG → simplex crossover (ROADMAP.md Queue 1 item
 9).  The TPU-only f32 mid-size pass is not ported: it works around the
@@ -25,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +40,7 @@ from ..canonical import CanonicalLP, canonicalize, nonbasic_values
 from ..options import SolverOptions
 from ..status import Status, VarStat
 from ..utils import profiling, records
-from . import hostlp
+from . import hostlp, incremental
 from .primal import solve_canonical
 from .state import SimplexState, state_to_numpy
 
@@ -91,6 +97,8 @@ class EngineHandle:
         self.state = state  # setter detects a lazy (0, 0) Binv placeholder
         self.problem = problem
         self.opts = opts
+        #: var idx -> original (lo, hi) saved by fix_var (for unfix_var)
+        self.fixed_bounds: Dict[int, Tuple[float, float]] = {}
         self._x_cache: np.ndarray | None = None
         self._exact_obj: float | None = None
         #: populated by `certify()`: True/False after a certification attempt
@@ -214,6 +222,19 @@ class EngineHandle:
 
     def iterations(self) -> int:
         return int(self._state.niter)
+
+    # -- incremental API (SURVEY.md §4.2/§4.3 call stacks) -----------------------
+    def add_constraint(self, solution, terms, op, rhs) -> "api.Solution":
+        return incremental.add_constraint(self, terms, op, rhs)
+
+    def fix_var(self, solution, idx: int, val: float) -> "api.Solution":
+        return incremental.fix_var(self, idx, val)
+
+    def unfix_var(self, solution, idx: int) -> Tuple[bool, "api.Solution"]:
+        return incremental.unfix_var(self, idx)
+
+    def add_gomory_cut(self, solution, idx: int) -> "api.Solution":
+        return incremental.add_gomory_cut(self, idx)
 
 
 def _maybe_presolve(problem: "api.Problem") -> "api.Problem":
@@ -341,23 +362,28 @@ def _host_polish_from_basis(
     return state._replace(niter=np.int32(int(state.niter) + niter0))
 
 
-def _try_megakernel_solve(can: CanonicalLP, opts: SolverOptions) -> SimplexState | None:
+def _try_megakernel_solve(can: CanonicalLP, opts: SolverOptions,
+                          warm_state=None) -> SimplexState | None:
     """Solve one canonical LP through K1 (f32 iterate) on the solve's device.
 
     Returns the exact f64 state when the discovered basis passes f64
     certification, the polished state when an OPTIMAL claim failed it, or
     None for any other claim (the caller runs the f64 engine).  A kernel
-    fault raises.
+    fault raises.  `warm_state=(basis, vstat, Binv)` (unbatched host arrays)
+    re-solves from a previous basis: the incremental API's warm restart.
     """
     from ..ops.kernels.batched_simplex import solve_batch_megakernel
 
     dev = _device(opts)
+    if warm_state is not None:
+        warm_state = tuple(np.asarray(x)[None] for x in warm_state)
     with profiling.stage("megakernel_s", dev):
         res = solve_batch_megakernel(
             can.A[None], can.b[None], can.c[None], can.lo[None], can.hi[None],
             device=dev,
             slack0=can.nv,
             max_iter=opts.effective_max_iter(can.M, can.N),
+            warm_state=warm_state,
         )
     basis = np.asarray(res.basis[0])
     vstat = np.asarray(res.vstat[0]).astype(np.int8)
@@ -417,7 +443,8 @@ def streaming_options(can: CanonicalLP, opts: SolverOptions) -> dict:
     )
 
 
-def _try_streaming_solve(can: CanonicalLP, opts: SolverOptions) -> SimplexState | None:
+def _try_streaming_solve(can: CanonicalLP, opts: SolverOptions,
+                         warm_state=None) -> SimplexState | None:
     """Solve one canonical LP through K2 (f32 iterate) on the solve's device.
 
     Same contract as `_try_megakernel_solve`: the exact f64 state when the
@@ -425,12 +452,13 @@ def _try_streaming_solve(can: CanonicalLP, opts: SolverOptions) -> SimplexState 
     basis for an OPTIMAL, NUMERICAL (the kernel's Newton telltale: the
     basis outgrew f32) or MAX_ITER claim that failed it — the f32 pass
     still banked its pivots; None for any other claim (the caller runs the
-    host engines).  A kernel fault raises.
+    host engines).  A kernel fault raises.  `warm_state=(basis, vstat,
+    Binv)` restarts K2 from a previous basis, on `can.A` as it stands.
     """
     from ..ops.kernels.streaming_simplex import solve_streaming
 
     res = solve_streaming(can.A, can.b, can.c, can.lo, can.hi,
-                          **streaming_options(can, opts))
+                          **streaming_options(can, opts), warm_state=warm_state)
     basis = np.asarray(res.basis)
     vstat = np.asarray(res.vstat).astype(np.int8)
     if bool(res.verified):

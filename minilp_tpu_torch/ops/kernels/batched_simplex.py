@@ -470,7 +470,9 @@ def solve_batch_megakernel(
     if slack0 is None:
         slack0 = n - m
     dev = torch.device(device)
-    up = lambda x, dt: torch.tensor(np.asarray(x, dtype=dt), device=dev)
+    # C order on the device whatever the host layout (a B⁻¹ from the sparse
+    # LU's solve is Fortran-ordered)
+    up = lambda x, dt: torch.tensor(np.ascontiguousarray(x, dtype=dt), device=dev)
     args = [up(x, np.float32) for x in (A, b, c, lo, hi)]
     warm = None
     if warm_state is not None:

@@ -781,7 +781,9 @@ def prepare_launch(
         lo = np.concatenate([lo, np.zeros(pad)])
         hi = np.concatenate([hi, np.zeros(pad)])
     dev = torch.device(device)
-    up = lambda x, dt: torch.tensor(np.asarray(x, dtype=dt), device=dev)
+    # C order on the device whatever the host layout (a B⁻¹ from the sparse
+    # LU's solve is Fortran-ordered)
+    up = lambda x, dt: torch.tensor(np.ascontiguousarray(x, dtype=dt), device=dev)
     warm = None
     if warm_state is not None:
         basis0, vstat0, Binv0 = warm_state

@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from minilp_tpu_torch import ComparisonOp, OptimizationDirection, Problem, SolverOptions
+from minilp_tpu_torch import (ComparisonOp, Infeasible, LinearExpr, OptimizationDirection,
+                              Problem, SolverOptions, Variable)
 from minilp_tpu_torch.canonical import canonicalize
 from minilp_tpu_torch.ops.kernels import batched_simplex as bs
 from minilp_tpu_torch.ops.kernels import packed_simplex as ps
@@ -197,6 +198,61 @@ def test_k2_kernel_matches_plain_warm_start(cuda):
     warm = (cold.basis, cold.vstat, np.linalg.inv(A[:, cold.basis]))
     out = _k2_kernel_and_plain(cuda, A, b, c, lo, hi2, slack0=32, warm_state=warm)
     assert int(out.monitor[1]) > 0
+
+
+@pytest.mark.parametrize("seed", [2, 11])
+@pytest.mark.parametrize("route", ["megakernel", "streaming"])
+def test_warm_resolves_through_the_api_match_plain(cuda, route, seed):
+    """The incremental API with a kernel forced: on the card every re-solve
+    launches K1 (or K2) warm; on the CPU the same edits run its plain
+    version.  Each edit, chosen from the CPU run's values, gives the same
+    outcome, certified flag and objective within 1e-9 relative."""
+    mod, options = {"megakernel": (bs, dict(use_megakernel="always")),
+                    "streaming": (ss, dict(use_streaming="always",
+                                           use_megakernel="never"))}[route]
+    sols = {}
+    for dev in ("cuda", "cpu"):
+        prob = netlib_shaped_problem(60, 150, 0.06, seed=seed)
+        prob.options = SolverOptions(device=dev, **options)
+        sols[dev] = prob.solve()
+    rng = np.random.default_rng(5)
+    before = mod.launches
+
+    def both(edit, *args):
+        out = {}
+        for dev in ("cuda", "cpu"):
+            try:
+                res = getattr(sols[dev], edit)(*args)
+            except Infeasible:
+                out[dev] = None
+                continue
+            sols[dev] = res[1] if edit == "unfix_var" else res
+            out[dev] = sols[dev]
+        assert (out["cuda"] is None) == (out["cpu"] is None), edit
+        if out["cpu"] is not None:
+            got, want = out["cuda"], out["cpu"]
+            assert got._engine.certified and want._engine.certified
+            assert abs(got.objective() - want.objective()) <= 1e-9 * (1.0 + abs(want.objective()))
+        return out["cpu"] is not None
+
+    edits = 0
+    for _k in range(3):
+        js = rng.choice(150, size=8, replace=False)
+        coeffs = rng.normal(size=8)
+        val = sum(float(cf) * sols["cpu"][Variable(int(j))] for cf, j in zip(coeffs, js))
+        expr = LinearExpr((float(cf), Variable(int(j))) for cf, j in zip(coeffs, js))
+        edits += 1
+        if not both("add_constraint", expr, ComparisonOp.Le, val - 0.05):
+            break
+    else:
+        h = sols["cpu"]._engine
+        x = h._x_full()
+        j = max((int(k) for k in h._state.basis if k < h.can.nv), key=lambda k: x[k] - h.can.lo[k])
+        both("fix_var", Variable(j), 0.5 * (h.can.lo[j] + x[j]))
+        both("unfix_var", Variable(j))
+        edits += 2
+    torch.cuda.synchronize()
+    assert mod.launches >= before + edits
 
 
 def _k2_bits(out):

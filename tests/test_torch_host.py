@@ -2,8 +2,8 @@
 
 `canonicalize` arrays bit-equal, presolve statistics equal, the host sparse
 engine (`solve_host_sparse`) on the same pivot path; plus the package
-surface: no jax import, the explicit device, the unported incremental API,
-records and stage timers.
+surface: no jax import, the explicit device, each incremental edit against
+the reference's, records and stage timers.
 """
 
 import dataclasses
@@ -182,14 +182,28 @@ def test_cuda_device_without_card_raises():
 @pytest.mark.parametrize("method", ["add_constraint", "fix_var", "unfix_var",
                                     "add_gomory_cut"])
 def test_incremental_api_not_ported(method):
-    prob = minilp_tpu_torch.Problem(options=CPU)
-    x = prob.add_var(1.0, (0.0, 1.0))
-    prob.add_constraint(x + x, minilp_tpu_torch.ComparisonOp.Ge, 0.5)
-    sol = prob.solve()
-    args = {"add_constraint": (x, minilp_tpu_torch.ComparisonOp.Le, 0.5),
-            "fix_var": (x, 0.5), "unfix_var": (x,), "add_gomory_cut": (x,)}[method]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        getattr(sol, method)(*args)
+    """Named for when these four edits raised NotImplementedError in the
+    port: each now runs on the CPU and gives the JAX package's objective,
+    values and pivots on the same LP."""
+    ref_prob = minilp_tpu.Problem(minilp_tpu.OptimizationDirection.Maximize)
+    x = ref_prob.add_var(1.0, (0.0, 3.0))
+    y = ref_prob.add_var(2.0, (0.0, 3.0))
+    ref_prob.add_constraint(2 * x + 2 * y, minilp_tpu.ComparisonOp.Le, 7.0)
+    sols = [ref_prob.solve(), as_torch_problem(ref_prob).solve()]
+    for pkg, k in ((minilp_tpu, 0), (minilp_tpu_torch, 1)):
+        v = pkg.Variable(0)
+        if method == "unfix_var":
+            sols[k] = sols[k].fix_var(v, 0.5).unfix_var(v)[1]
+        else:
+            args = {"add_constraint": (v, pkg.ComparisonOp.Le, 0.25),
+                    "fix_var": (v, 0.25), "add_gomory_cut": (v,)}[method]
+            sols[k] = getattr(sols[k], method)(*args)
+    ref, got = sols
+    assert got._engine.certified
+    assert got.objective() == pytest.approx(ref.objective(), rel=1e-9, abs=1e-9)
+    assert [v for _, v in got.iter()] == pytest.approx([v for _, v in ref.iter()],
+                                                       rel=1e-9, abs=1e-9)
+    assert got._engine.iterations() == ref._engine.iterations()
 
 
 def test_records_and_stage_timers(tmp_path, monkeypatch):
