@@ -93,6 +93,28 @@ failure (exit code 1; no result line is printed then):
    and where one claim passes it and the other not, the pivot at which the
    two paths part).
 
+7. PDHG and the PDHG → simplex crossover (no kernel of this repository:
+   the PDHG step is torch ops): (a) the main path at the maros-r7 shape
+   (`netlib_shaped_problem(3136, 9408, 0.0049, seed=1)`), written with
+   `write_mps`, read back through the native parser, and `Problem.solve()`
+   with the default options.  Required: only the `cold_solve_crossover`
+   record, the device stage run on the card, a certified solution, the
+   objective within 1e-9 relative of the reference's certified
+   −4686.208519614669 and within 1e-6 of HiGHS (run once, after the
+   solve), and the hand-off the solve took (the host stage's launches and
+   timer) the one the rule gives on the last chunk's f64 KKT.  It logs the
+   stages, each device chunk (operator, iterations, wall, the host's f64
+   KKT), the hand-off, each phase's iterations per second, and one f32 PDHG iteration's ms by
+   CUDA events beside its bound (the two matvecs' bytes over 3.35 TB/s);
+   (b) `engine="pdhg"` on the `single_lp` 256x1024 instance at feas_tol
+   1e-6, dense and sparse: the `pdhg_solve` record, OPTIMAL, within 1e-5
+   of HiGHS; then the card against the CPU on the same inputs: the f64
+   dense PDHG after 4 windows (1e-9) and one f32 device-stage chunk
+   (1e-4); (c) the sparse f64 engine at the maros-r7 shape in `stop_at`
+   chunks for 60 s: iterations per second, the f64 KKT, the gap to (a)'s
+   objective; required: finite iterates and a falling KKT.  Phase 4b also
+   holds K2's 25fv47 objective to the reference's certified one (1e-9).
+
 It prints the kernel table as one JSON line (each kernel's launches on its
 main paths, by path in `launches_by_path`: K1's and K2's cold solves of
 phases 4 and 4b and warm re-solves of phase 6, K3's batched path; its time
@@ -140,6 +162,18 @@ K3_PIVOTS = {f"batch{BATCH}_32x128": 178961, "netlib_shaped_60x150_replicated": 
 # version's at pivot 127 on K3's f32 x_B of one row (`utils/k3_lane.py`;
 # ROADMAP Queue 3)
 K3_UNVERIFIED_SEED1 = [293, 471]
+#: the reference's certified objective at the 25fv47 shape (seed 1), from the
+#: JAX package on the CPU (`tests/test_torch_crossover.py`, OBJ_25FV47)
+OBJ_25FV47 = -685.0486724425741
+REL_REF = 1e-9      # a certified objective vs the reference's
+#: phase 7: the maros-r7 shape of bench.py:133 (`NETLIB_SHAPES["maros-r7"]`,
+#: seed 1) and the reference's certified objective there (`BENCH_r05.json`,
+#: `netlib_shape_maros_r7`: an exact f64 certificate after 776 polish pivots)
+MAROS = (3136, 9408, 0.0049)
+MAROS_OBJ = -4686.208519614669
+#: engine="pdhg" at 1e-6 as tests/test_large.py runs it (`PDHG`)
+PDHG_KW = dict(engine="pdhg", feas_tol=1e-6, pdhg_max_iter=600_000)
+PDHG_WALL_S = 60.0  # phase 7(c)'s wall bound
 
 
 def log(*args) -> None:
@@ -708,9 +742,10 @@ def build_all(build, names):
                 log("    ptxas: " + line.strip())
 
 
-def solve_main_path(tag, make, want, event, rec_path, reps=2):
+def solve_main_path(tag, make, want, event, rec_path, reps=2, ref=None):
     """`Problem.solve()` of fresh copies: the record, certificate and HiGHS
-    gap of each; returns the cold solve's (walls, stages, pivots)."""
+    gap of each, and the gap to the reference's certified objective `ref`
+    where given; returns the cold solve's (walls, stages, pivots)."""
     import torch
     from minilp_tpu_torch.utils import profiling
 
@@ -735,6 +770,8 @@ def solve_main_path(tag, make, want, event, rec_path, reps=2):
         got = sol.objective()
         if abs(got - want) > REL_HIGHS * (1.0 + abs(want)):
             raise AssertionError(f"{tag}: objective {got!r} vs HiGHS {want!r}")
+        if ref is not None and abs(got - ref) > REL_REF * (1.0 + abs(ref)):
+            raise AssertionError(f"{tag}: objective {got!r} vs the reference's {ref!r}")
     log(f"  {tag}: objective={sols[0].objective()!r} highs={want!r} "
         f"pivots={sols[0]._engine.iterations()} "
         f"walls_s={[round(w, 3) for w in walls]} "
@@ -1041,6 +1078,255 @@ def incremental_main_path(torch, rec_path, cmp_k1, cmp_k2, chains=CHAINS):
     return warm
 
 
+def maros_highs() -> float:
+    """HiGHS on the maros-r7 shape: phase 7(a)'s oracle, run in process
+    after the solve it checks (it takes minutes)."""
+    from minilp_tpu_torch.utils.synth import netlib_shaped_problem
+
+    return highs_objective(netlib_shaped_problem(*MAROS, seed=1))
+
+
+@contextlib.contextmanager
+def recording_device_chunks():
+    """Record the crossover's stages as they run: the device stage chunk by
+    chunk (the operator's dtype and device, the iterations after the chunk
+    and its wall, from `pdhg.solve_pdhg`; the host's f64 KKT of its
+    iterate, from `crossover.kkt_error_f64`), and each launch of the host
+    stage (`pdhg.solve_pdhg_sparse`: warm from the device iterate or
+    cold)."""
+    from minilp_tpu_torch.engine import crossover, pdhg
+
+    saved = pdhg.solve_pdhg, crossover.kkt_error_f64, pdhg.solve_pdhg_sparse
+    chunks, host = [], []
+
+    def solve(A, *args, **kw):
+        t0 = time.perf_counter()
+        st = saved[0](A, *args, **kw)
+        chunks.append(dict(phase=str(A.dtype).replace("torch.", ""), device=A.device.type,
+                           niter=int(st.niter), wall_s=time.perf_counter() - t0))
+        return st
+
+    def kkt(*args):
+        err = saved[1](*args)
+        if chunks and "kkt" not in chunks[-1]:
+            chunks[-1]["kkt"] = err
+        return err
+
+    def host_stage(*args, **kw):
+        host.append("warm" if kw.get("state0") is not None else "cold")
+        return saved[2](*args, **kw)
+
+    pdhg.solve_pdhg, crossover.kkt_error_f64, pdhg.solve_pdhg_sparse = solve, kkt, host_stage
+    try:
+        yield chunks, host
+    finally:
+        pdhg.solve_pdhg, crossover.kkt_error_f64, pdhg.solve_pdhg_sparse = saved
+
+
+def pdhg_step_ms(torch, can, windows=32):
+    """ms of one f32 halpern PDHG iteration of the device stage at `can`'s
+    shape, by CUDA events: (a run of 1 + `windows` windows − a run of one
+    window) over the iterations between, so Ruiz and ‖A‖₂ drop out."""
+    from minilp_tpu_torch import SolverOptions
+    from minilp_tpu_torch.engine import crossover, pdhg
+
+    opts = crossover.stage_options(SolverOptions(), 1e-4)
+    put = lambda v: torch.as_tensor(np.asarray(v, np.float32), device=DEVICE)
+    args = [put(v) for v in (can.A, can.b, can.c, can.lo, can.hi)]
+    every = opts.pdhg_check_every
+    _, t1 = timed(torch, lambda: pdhg.solve_pdhg(*args, opts=opts, stop_at=every))
+    st, t2 = timed(torch, lambda: pdhg.solve_pdhg(*args, opts=opts,
+                                                   stop_at=every * (1 + windows)))
+    if int(st.niter) != every * (1 + windows):
+        raise AssertionError(f"the timed PDHG run stopped at {int(st.niter)}")
+    return (t2 - t1) / (every * windows)
+
+
+def crossover_main_path(torch, rec_path, shape=MAROS, want=MAROS_OBJ):
+    """Phase 7(a): the maros-r7 shape written with `write_mps`, read back
+    through the native parser, and `Problem.solve()` with the default
+    options on the card: the crossover (device PDHG stage, identify, host
+    polish).  Returns what (c) and the PDHG step's row need."""
+    from minilp_tpu_torch import SolverOptions
+    from minilp_tpu_torch.io import mps
+    from minilp_tpu_torch.utils import profiling
+    from minilp_tpu_torch.utils.synth import netlib_shaped_problem
+
+    log(f"[7a] main path through the crossover: MPS file -> Problem.solve() at the "
+        f"maros-r7 shape {shape[0]}x{shape[1]} on the card")
+    path = rec_path.parent / "maros_r7_shape.mps"
+    t0 = time.perf_counter()
+    path.write_text(mps.write_mps(netlib_shaped_problem(*shape, seed=1)))
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mp = mps.read_mps(str(path), options=SolverOptions(device=DEVICE), native=True)
+    t_read = time.perf_counter() - t0
+    log(f"  write_mps {t_write:.3f} s ({path.stat().st_size} bytes), read_mps "
+        f"(native) {t_read:.3f} s: {mp.problem.num_vars} vars, "
+        f"{mp.problem.num_constraints} rows")
+    prob = mp.problem
+    n_rec = len(rec_path.read_text().splitlines()) if rec_path.exists() else 0
+    profiling.reset_stages()
+    with recording_device_chunks() as (chunks, host):
+        t0 = time.perf_counter()
+        sol = prob.solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    stages = profiling.stages()
+    events = [json.loads(line)["event"] for line in rec_path.read_text().splitlines()[n_rec:]]
+    if events != ["cold_solve_crossover"]:
+        raise AssertionError(f"maros: solve records {events}")
+    dev_iters = stages.get("crossover_pdhg_device_iters", 0)
+    if dev_iters <= 0 or not chunks or {c["device"] for c in chunks} != {DEVICE}:
+        raise AssertionError(f"maros: device stage {dev_iters} iterations, chunks {chunks}")
+    if not sol._engine.certified:
+        raise AssertionError("maros: solution not certified")
+    got = sol.objective()
+    if abs(got - want) > REL_REF * (1.0 + abs(want)):
+        raise AssertionError(f"maros: objective {got!r} vs the reference's {want!r}")
+    can = sol._engine.can
+    tol = max(prob.options.crossover_tol, prob.options.feas_tol)
+    err_d = chunks[-1]["kkt"]
+    rule = ("identify from the device iterate" if err_d <= 10 * tol else
+            "host stage cold" if err_d > 1e-2 else "host stage warm")
+    # the branch the solve took: the host stage's launches, and its timer
+    branch = f"host stage {host[0]}" if host else "identify from the device iterate"
+    if len(host) > 1 or bool(host) != ("crossover_pdhg_s" in stages) or branch != rule:
+        raise AssertionError(f"maros: hand-off {branch} (host launches {host}, stages "
+                             f"{sorted(stages)}), the rule on the f64 KKT {err_d:.3e}: {rule}")
+    log(f"  objective={got!r} (reference {want!r}, rel {abs(got - want) / (1 + abs(want)):.3e}) "
+        f"canonical {can.M}x{can.N} wall_s={wall:.3f} polish pivots={sol._engine.iterations()}")
+    log(f"  hand-off: device f64 KKT {err_d:.3e} (tol {tol:g}) -> {branch}")
+    done = 0
+    for c in chunks:
+        c["iters"], done = c["niter"] - done, c["niter"]
+    for ph in ("bfloat16", "float32"):
+        it = sum(c["iters"] for c in chunks if c["phase"] == ph)
+        sec = sum(c["wall_s"] for c in chunks if c["phase"] == ph)
+        if it:
+            log(f"  device phase {ph}: {it} iterations in {sec:.3f} s = {it / sec:.1f} it/s")
+    for c in chunks:
+        log(f"    chunk {c['phase']}: iters={c['niter']} wall_s={c['wall_s']:.3f} "
+            f"f64_kkt={c['kkt']:.4e}")
+    log(f"  stages: {stages}")
+    step_ms = pdhg_step_ms(torch, can)
+    # one iteration's two matvecs each read the dense f32 A once
+    step_bytes = 2 * 4 * can.M * can.N
+    step_bound = step_bytes / HBM_BYTES * 1e3
+    log(f"  PDHG step (torch ops, f32 halpern at {can.M}x{can.N}): {step_ms:.4f} ms/iteration "
+        f"by CUDA events; bound {step_bound:.4f} ms (two matvecs, {step_bytes} bytes "
+        f"over {HBM_BYTES:.3g} B/s); device iterations on the path: {dev_iters}")
+    t0 = time.perf_counter()
+    h = maros_highs()
+    log(f"  HiGHS {h!r}, rel {abs(got - h) / (1 + abs(h)):.3e}; it took "
+        f"{time.perf_counter() - t0:.1f} s")
+    if abs(got - h) > REL_HIGHS * (1.0 + abs(h)):
+        raise AssertionError(f"maros: objective {got!r} vs HiGHS {h!r}")
+    return dict(objective=got, step_ms=step_ms, step_bound_ms=step_bound, iterations=dev_iters)
+
+
+def same_iterates(tag, card, cpu, tol):
+    """x and y of a card run within `tol` of the CPU run's: ‖Δ‖ ≤ tol·(1 + ‖cpu‖)."""
+    worst = 0.0
+    for name in ("x", "y"):
+        a, b = getattr(card, name).double().cpu().numpy(), getattr(cpu, name).double().numpy()
+        rel = float(np.linalg.norm(a - b) / (1.0 + np.linalg.norm(b)))
+        if not rel <= tol:
+            raise AssertionError(f"{tag}: {name} card vs CPU {rel:.3e} > {tol:g}")
+        worst = max(worst, rel)
+    log(f"  {tag}: card vs CPU on the same inputs, iterations {int(card.niter)} / "
+        f"{int(cpu.niter)}, x and y within {worst:.3e} (tolerance {tol:g})")
+
+
+def pdhg_engine_on_card(torch, rec_path, highs_256):
+    """Phase 7(b): engine="pdhg" on the `single_lp` 256x1024 instance, dense
+    and sparse, then the card against the CPU on the same inputs."""
+    from minilp_tpu_torch import SolverOptions
+    from minilp_tpu_torch.canonical import canonicalize
+    from minilp_tpu_torch.engine import crossover, pdhg
+    from minilp_tpu_torch.presolve import presolve_problem
+    from minilp_tpu_torch.utils.synth import netlib_shaped_problem
+
+    log("[7b] engine=\"pdhg\" on the card: single_lp 256x1024 at feas_tol 1e-6")
+    make = lambda: netlib_shaped_problem(*SINGLE_LP["256x1024"], seed=11)
+    for matrix in ("dense", "sparse"):
+        prob = make()
+        prob.options = SolverOptions(device=DEVICE, pdhg_matrix=matrix, **PDHG_KW)
+        n_rec = len(rec_path.read_text().splitlines()) if rec_path.exists() else 0
+        t0 = time.perf_counter()
+        sol = prob.solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        recs = [json.loads(line) for line in rec_path.read_text().splitlines()[n_rec:]]
+        if [(r["event"], r["status"], r["backend"]) for r in recs] != \
+                [("pdhg_solve", "OPTIMAL", DEVICE)]:
+            raise AssertionError(f"pdhg {matrix}: records {recs}")
+        got = sol.objective()
+        if abs(got - highs_256) > 1e-5 * (1.0 + abs(highs_256)):
+            raise AssertionError(f"pdhg {matrix}: objective {got!r} vs HiGHS {highs_256!r}")
+        it = sol._engine.iterations()
+        log(f"  {matrix}: objective={got!r} HiGHS={highs_256!r} iterations={it} "
+            f"wall_s={wall:.3f} ({it / wall:.1f} it/s)")
+    can = canonicalize(presolve_problem(make())[0])
+    put = lambda dev, dt: [torch.as_tensor(np.asarray(v), dtype=dt, device=dev)
+                           for v in (can.A, can.b, can.c, can.lo, can.hi)]
+    opts = SolverOptions(**PDHG_KW)
+    every = opts.pdhg_check_every
+    card = pdhg.solve_pdhg(*put(DEVICE, torch.float64), opts=opts, stop_at=4 * every)
+    cpu = pdhg.solve_pdhg(*put("cpu", torch.float64), opts=opts, stop_at=4 * every)
+    same_iterates("f64 dense PDHG, 4 windows", card, cpu, 1e-9)
+    stage = crossover.stage_options(SolverOptions(), 1e-4)
+    card = pdhg.solve_pdhg(*put(DEVICE, torch.float32), opts=stage, stop_at=crossover.FIRST_CHUNK)
+    cpu = pdhg.solve_pdhg(*put("cpu", torch.float32), opts=stage, stop_at=crossover.FIRST_CHUNK)
+    same_iterates("f32 device-stage chunk", card, cpu, 1e-4)
+
+
+def pdhg_maros_wall_bounded(torch, cert_obj, wall_s=PDHG_WALL_S, shape=MAROS):
+    """Phase 7(c): the sparse f64 engine on the card at the maros-r7 shape in
+    `stop_at` chunks for `wall_s` seconds, as bench.py's `pdhg_maros_shape`
+    reports it: iterations per second, the f64 KKT, the gap to (a)'s
+    certified objective.  Required: finite iterates and a falling KKT."""
+    from minilp_tpu_torch import SolverOptions, Status
+    from minilp_tpu_torch.canonical import canonicalize
+    from minilp_tpu_torch.engine import crossover, pdhg
+    from minilp_tpu_torch.utils.synth import netlib_shaped_problem
+
+    log(f"[7c] sparse f64 PDHG on the card at the maros-r7 shape, {wall_s:g} s wall-bounded")
+    can = canonicalize(netlib_shaped_problem(*shape, seed=1), dtype=np.float64)
+    opts = SolverOptions(engine="pdhg", feas_tol=1e-6, pdhg_matrix="sparse",
+                         pdhg_max_iter=400_000)
+    put = lambda v: torch.as_tensor(np.asarray(v, np.float64), device=DEVICE)
+    A = put(can.A).to_sparse_csr()
+    vecs = [put(v) for v in (can.b, can.c, can.lo, can.hi)]
+    A64 = can.csc()
+    st, done, chunk, kkts = None, 0, 1000, []
+    t0 = time.perf_counter()
+    while done < opts.pdhg_max_iter and time.perf_counter() - t0 < wall_s:
+        tc = time.perf_counter()
+        st = pdhg.solve_pdhg_sparse(A, *vecs, opts=opts, state0=st,
+                                    stop_at=min(done + chunk, opts.pdhg_max_iter))
+        x, y = st.x.cpu().numpy(), st.y.cpu().numpy()
+        dt = time.perf_counter() - tc
+        prev, done = done, int(st.niter)
+        if not (np.isfinite(x).all() and np.isfinite(y).all()):
+            raise AssertionError(f"maros sparse PDHG: non-finite iterate after {done}")
+        kkts.append(crossover.kkt_error_f64(A64, can.b, can.c, can.lo, can.hi, x, y,
+                                            opts.feas_tol))
+        log(f"    chunk: iters={done} wall_s={dt:.3f} f64_kkt={kkts[-1]:.4e}")
+        if int(st.status) != int(Status.MAX_ITER):
+            break
+        rate = (done - prev) / max(dt, 1e-3)
+        left = wall_s - (time.perf_counter() - t0)
+        chunk = int(max(min(rate * 10.0, rate * left, 100_000), 64))
+    wall = time.perf_counter() - t0
+    if len(kkts) < 2 or not kkts[-1] < kkts[0]:
+        raise AssertionError(f"maros sparse PDHG: the KKT did not fall {kkts}")
+    obj = float(can.obj_sign * (can.c @ x))
+    log(f"  iterations={done} wall_s={wall:.3f} ({done / wall:.1f} it/s) status="
+        f"{Status(int(st.status)).name} f64_kkt first/last {kkts[0]:.4e} / {kkts[-1]:.4e} "
+        f"objective={obj!r} rel_gap_vs_certified={abs(obj - cert_obj) / (1 + abs(cert_obj)):.3e}")
+
+
 def main() -> int:
     if not (HERE / "minilp_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: the minilp_tpu_torch package is not beside this "
@@ -1051,6 +1337,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 3
+    return phases(torch)
+
+
+def phases(torch) -> int:
+    """Phases 1 to 7 (the module docstring)."""
     t_start = time.perf_counter()
     sys.path.insert(0, str(HERE))
     import minilp_tpu_torch
@@ -1177,7 +1468,8 @@ def main() -> int:
     want = {tag: highs_objective(make()) for tag, make in netlib.items()}
     ss.launches = 0  # counts from here on are the main path's
     for tag, make in netlib.items():
-        solve_main_path(tag, make, want[tag], "cold_solve_streaming", rec_path)
+        solve_main_path(tag, make, want[tag], "cold_solve_streaming", rec_path,
+                        ref=OBJ_25FV47 if tag == "25fv47" else None)
     k2_launches = ss.launches
     if k2_launches <= 0:
         raise AssertionError("the main path never launched K2")
@@ -1201,6 +1493,11 @@ def main() -> int:
     warm = incremental_main_path(torch, rec_path, cmp_, cmp2)
     if warm["batched_simplex"] <= 0 or warm["streaming_simplex"] <= 0:
         raise AssertionError(f"the incremental path launched K1 and K2 {warm}")
+
+    # ---- 7. PDHG and the PDHG → simplex crossover ---------------------------
+    maros = crossover_main_path(torch, rec_path)
+    pdhg_engine_on_card(torch, rec_path, expected["single_lp_256x1024"])
+    pdhg_maros_wall_bounded(torch, maros["objective"])
 
     ms_k, ms_p = cmp_.times["single_lp_512x2048"]
     k1_bound = dense_simplex_bound(cmp_.niter["single_lp_512x2048"], 504, 2048)

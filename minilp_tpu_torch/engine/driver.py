@@ -15,15 +15,20 @@ The algorithmic fallbacks stay — they act on a result, not on a fault: an
 uncertified claim goes to the exact polish, any other kernel claim to the
 f64 engine.
 
+Above `_CROSSOVER_M` padded rows a cold f64 solve starts with the PDHG →
+simplex crossover (`engine/crossover.py`: the PDHG stage on the device,
+basis identification, the exact host polish); `engine="pdhg"` runs the
+first-order engine alone (`engine/pdhg.py`, one call on the solve's device
+in the options' dtype, as the JAX package runs it off a TPU).
+
 The handle (`EngineHandle`) owns the canonical form and the final state, and
 carries the incremental re-solve API (`engine/incremental.py`): host-first
 warm re-solves, then K1 or K2 restarted warm from (basis, vstat, B⁻¹), then
 the f64 torch engines (`engine/dual.py`, `engine/primal.py`).
 
-Not ported yet (each raises `NotImplementedError` or routes past it):
-`engine="pdhg"` and the PDHG → simplex crossover (ROADMAP.md Queue 1 item
-9).  The TPU-only f32 mid-size pass is not ported: it works around the
-TPU's emulated f64.
+Not ported: the TPU-only f32 mid-size pass (it works around the TPU's
+emulated f64), and the TPU branch of the PDHG engine's driver (chunked
+launches under the TPU worker's watchdog, and an f32 head start for f64).
 """
 
 from __future__ import annotations
@@ -47,6 +52,10 @@ from .state import SimplexState, state_to_numpy
 #: padded-row threshold above which host-side exact linear algebra goes
 #: through the sparse LU (engine/hostlp.py) instead of dense LAPACK
 _SPARSE_HOST_M = 1024
+
+#: padded-row threshold above which a cold f64 solve starts with the PDHG →
+#: simplex crossover (the JAX package's literal 2048)
+_CROSSOVER_M = 2048
 
 
 def _np_dtype(opts: SolverOptions):
@@ -237,6 +246,42 @@ class EngineHandle:
         return incremental.add_gomory_cut(self, idx)
 
 
+class PdhgHandle:
+    """Solution handle for the first-order engine (no basis, no incremental API).
+
+    The PDHG engine returns primal/dual iterates rather than a simplex basis;
+    the incremental warm-start surface is simplex-specific, so those methods
+    direct the user back to `engine="simplex"`.  The iterates are kept as
+    host numpy in the options' dtype.
+    """
+
+    def __init__(self, can: CanonicalLP, pstate, problem, opts):
+        self.can = can
+        self.pstate = pstate
+        self.x = pstate.x.cpu().numpy()
+        self.problem = problem
+        self.opts = opts
+
+    def user_objective(self) -> float:
+        return float(self.can.obj_sign * (self.can.c @ self.x))
+
+    def var_value(self, idx: int) -> float:
+        if not (0 <= idx < self.can.nv):
+            raise IndexError(f"variable index {idx} out of range")
+        return float(self.x[idx])
+
+    def iterations(self) -> int:
+        return int(self.pstate.niter)
+
+    def _no_incremental(self, *_args, **_kw):
+        raise api.SolverFailure(
+            "incremental re-solve requires the simplex engine "
+            '(SolverOptions(engine="simplex"))'
+        )
+
+    add_constraint = fix_var = unfix_var = add_gomory_cut = _no_incremental
+
+
 def _maybe_presolve(problem: "api.Problem") -> "api.Problem":
     """Apply host presolve when enabled; may raise Infeasible/Unbounded."""
     if not problem.options.presolve:
@@ -246,6 +291,55 @@ def _maybe_presolve(problem: "api.Problem") -> "api.Problem":
     with profiling.stage("presolve_s"):
         reduced, _stats = presolve_problem(problem)
     return reduced
+
+
+def _use_sparse_pdhg(A: np.ndarray, opts: SolverOptions) -> bool:
+    if opts.pdhg_matrix == "sparse":
+        return True
+    if opts.pdhg_matrix == "dense":
+        return False
+    if opts.pdhg_matrix != "auto":
+        raise ValueError(f"unknown pdhg_matrix {opts.pdhg_matrix!r}")
+    # auto: sparse pays off when the densified matvec would waste memory
+    # bandwidth on zeros — large instance, low density.
+    return A.size >= (1 << 16) and np.count_nonzero(A) <= 0.1 * A.size
+
+
+def _solve_problem_pdhg(problem: "api.Problem") -> "api.Solution":
+    """`engine="pdhg"`: one PDHG call on the solve's device, in the options'
+    dtype, over a dense or CSR A (`_use_sparse_pdhg`)."""
+    from .pdhg import solve_pdhg, solve_pdhg_sparse
+
+    opts = problem.options
+    dev = _device(opts)
+    problem = _maybe_presolve(problem)
+    can = canonicalize(problem, dtype=_np_dtype(opts))
+    put = lambda v: torch.as_tensor(np.asarray(v), device=dev)
+    args = (put(can.b), put(can.c), put(can.lo), put(can.hi))
+    with records.timed() as t:
+        if _use_sparse_pdhg(can.A, opts):
+            solver, amat = solve_pdhg_sparse, put(can.A).to_sparse_csr()
+        else:
+            solver, amat = solve_pdhg, put(can.A)
+        pstate = solver(amat, *args, opts=opts)
+        status = int(pstate.status)
+    handle = PdhgHandle(can, pstate, problem, opts)
+    if records.enabled():
+        records.emit(records.SolveRecord(
+            event="pdhg_solve", engine="pdhg", status=Status(status).name,
+            rows=can.m, cols=can.nv, padded_rows=can.M, padded_cols=can.N,
+            iterations=int(pstate.niter),
+            objective=(handle.user_objective()
+                       if status == Status.OPTIMAL else None),
+            wall_s=t.wall_s, backend=dev.type, dtype=opts.dtype,
+        ))
+    if status == Status.MAX_ITER:
+        raise api.SolverFailure(
+            f"PDHG did not converge in {opts.pdhg_max_iter} iterations "
+            f"(KKT error {float(pstate.err):.2e})"
+        )
+    _raise_for_status(status)
+    return api.Solution(handle, problem)
 
 
 def _megakernel_eligible(can: CanonicalLP, opts: SolverOptions) -> bool:
@@ -496,10 +590,7 @@ def solve_problem(problem: "api.Problem") -> "api.Solution":
     opts = problem.options
     _device(opts)  # a missing card fails the solve before any work
     if opts.engine == "pdhg":
-        raise NotImplementedError(
-            'engine="pdhg" is not ported to minilp_tpu_torch yet '
-            "(ROADMAP.md, Queue 1 item 9: PDHG and crossover)"
-        )
+        return _solve_problem_pdhg(problem)
     if opts.engine != "simplex":
         raise ValueError(f"unknown engine {opts.engine!r}")
     user_problem = problem
@@ -521,14 +612,32 @@ def solve_problem(problem: "api.Problem") -> "api.Solution":
             handle.certify()
             return api.Solution(handle, user_problem)
         # uncertified polish failure / non-optimal claim → f64 engine below
-    if (opts.dtype == "float64" and can.M > 2048 and opts.crossover != "never"
-            and opts.use_streaming != "always"):
-        raise NotImplementedError(
-            "cold solves above 2048 padded rows start with the PDHG → simplex "
-            "crossover, which is not ported to minilp_tpu_torch yet (ROADMAP.md, "
-            'Queue 1 item 9); pass SolverOptions(crossover="never") for the '
-            'host sparse engine, or use_streaming="always" for K2'
-        )
+    if (opts.dtype == "float64" and can.M > _CROSSOVER_M
+            and opts.crossover != "never" and opts.use_streaming != "always"):
+        # PDHG → simplex crossover first at these sizes, on any device: a
+        # cold slack-basis simplex there prices ~10⁵ pivots, the crossover a
+        # few hundred exact ones after the PDHG stage.  K2 stays the cold
+        # path below this size and the warm-restart path at every size.
+        from .crossover import solve_cold_crossover
+
+        with records.timed() as t:
+            res = solve_cold_crossover(can, opts)
+        if res is not None:
+            status = int(res.status)
+            state = _state_from_certified_basis(
+                can, res.basis, res.vstat, res.niter, opts, lu=res.lu,
+            )
+            if state is not None and status != int(Status.OPTIMAL):
+                state = state._replace(status=np.int32(status))
+            if state is not None:
+                _emit_record("cold_solve_crossover", can, state, status,
+                             t.wall_s, opts)
+                _raise_for_status(status)
+                handle = EngineHandle(can, state, problem, opts)
+                handle.certify()
+                return api.Solution(handle, user_problem)
+        # crossover declined (PDHG far from optimum / singular crash) →
+        # K2, then the host engines below
     if _streaming_eligible(can, opts):
         with records.timed() as t:
             state = _try_streaming_solve(can, opts)

@@ -72,10 +72,10 @@ class SolverOptions:
     use_megakernel: str = "auto"
     #: Netlib-scale single-LP routing through K2, the hand-written CUDA
     #: streaming kernel: "auto" takes padded LPs with M in (512, 4096] and
-    #: N <= 32768 when `device` is a CUDA device (above 2048 rows only with
-    #: `crossover="never"`: the crossover comes first there and is not
-    #: ported), "always" forces it (the kernel's plain torch version on the
-    #: CPU), "never" disables.  As for K1: f64 certification on the host,
+    #: N <= 32768 when `device` is a CUDA device (above 2048 rows only when
+    #: the crossover, which comes first there, is off or declines),
+    #: "always" forces it (the kernel's plain torch version on the CPU),
+    #: "never" disables.  As for K1: f64 certification on the host,
     #: and an uncertified OPTIMAL, NUMERICAL or MAX_ITER claim is polished
     #: exactly on the host.
     use_streaming: str = "auto"

@@ -407,3 +407,49 @@ def test_pipelined_goes_through_k3(cuda):
     for g, w in zip(got, want):
         assert g.verified.all()
         np.testing.assert_allclose(g.obj, w.obj, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("matrix", ["dense", "sparse"])
+def test_pdhg_on_the_card_matches_the_cpu(cuda, matrix):
+    """The PDHG engine's f64 iterates on the card equal the CPU run's after
+    4 windows (1e-9: the same arithmetic, summed in another order)."""
+    from minilp_tpu_torch.engine import pdhg
+
+    can = canonicalize(presolve_problem(netlib_shaped_problem(60, 150, 0.08, seed=4))[0])
+    opts = SolverOptions(engine="pdhg", feas_tol=1e-7)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        t = [torch.as_tensor(np.asarray(v), device=dev)
+             for v in (can.A, can.b, can.c, can.lo, can.hi)]
+        if matrix == "sparse":
+            runs.append(pdhg.solve_pdhg_sparse(t[0].to_sparse_csr(), *t[1:], opts=opts,
+                                               stop_at=256))
+        else:
+            runs.append(pdhg.solve_pdhg(*t, opts=opts, stop_at=256))
+    card, cpu = runs
+    assert int(card.niter) == int(cpu.niter) == 256
+    for name in ("x", "y"):
+        a, b = getattr(card, name).cpu().numpy(), getattr(cpu, name).numpy()
+        assert np.linalg.norm(a - b) <= 1e-9 * (1.0 + np.linalg.norm(b))
+
+
+def test_crossover_runs_its_device_stage_on_the_card(cuda, tmp_path, monkeypatch):
+    """`Problem.solve()` above `_CROSSOVER_M` (patched small): the device
+    stage runs on the card and the solve is certified at the objective of
+    the CPU's simplex route (1e-9)."""
+    from minilp_tpu_torch.engine import driver
+    from minilp_tpu_torch.utils import profiling
+
+    log = tmp_path / "rec.jsonl"
+    monkeypatch.setenv("MINILP_TPU_LOG", str(log))
+    monkeypatch.setattr(driver, "_CROSSOVER_M", 32)
+    prob = netlib_shaped_problem(60, 150, 0.08, seed=4)
+    prob.options = SolverOptions(use_megakernel="never")  # K1 would come first
+    profiling.reset_stages()
+    sol = prob.solve()
+    assert json.loads(log.read_text().splitlines()[-1])["event"] == "cold_solve_crossover"
+    assert profiling.stages()["crossover_pdhg_device_iters"] > 0
+    assert sol._engine.certified
+    cpu = netlib_shaped_problem(60, 150, 0.08, seed=4)
+    cpu.options = SolverOptions(device="cpu", use_megakernel="never")
+    assert abs(sol.objective() - cpu.solve().objective()) <= 1e-9 * (1 + abs(sol.objective()))

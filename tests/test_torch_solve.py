@@ -85,9 +85,17 @@ def test_megakernel_route_records_event(tmp_path, monkeypatch):
 
 
 def test_unported_engines_raise():
-    build, _ = HAND_CASES["doc_example_maximize"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        as_torch_problem(build(), engine="pdhg").solve()
+    """Named for when `engine="pdhg"` raised NotImplementedError in the
+    port: it runs now (the reference's objective, 1e-9), and only an
+    unknown engine raises."""
+    build, expected = HAND_CASES["doc_example_maximize"]
+    ref_prob = build()
+    ref_prob.options = dataclasses.replace(ref_prob.options, engine="pdhg", feas_tol=1e-7)
+    sol = as_torch_problem(ref_prob, engine="pdhg", feas_tol=1e-7).solve()
+    assert rel_err(sol.objective(), ref_prob.solve().objective()) <= 1e-9
+    assert rel_err(sol.objective(), expected) <= 1e-5
+    with pytest.raises(ValueError, match="unknown engine"):
+        as_torch_problem(build(), engine="interior_point").solve()
 
 
 def _wide_problem():
@@ -100,11 +108,20 @@ def _wide_problem():
     return prob
 
 
-def test_crossover_route_not_ported():
-    prob = as_torch_problem(_wide_problem(), row_capacity_slack=2100,
-                            use_megakernel="never")
-    with pytest.raises(NotImplementedError, match="crossover"):
-        prob.solve()
+def test_crossover_route_not_ported(tmp_path, monkeypatch):
+    """Named for when the crossover raised NotImplementedError in the port:
+    above 2048 padded rows a cold solve takes it now, as the reference's
+    does (`cold_solve_crossover`), to the reference's objective."""
+    log = tmp_path / "rec.jsonl"
+    monkeypatch.setenv("MINILP_TPU_LOG", str(log))
+    ref_prob = _wide_problem()
+    ref_prob.options = dataclasses.replace(ref_prob.options, crossover="auto")
+    sol = as_torch_problem(ref_prob, row_capacity_slack=2100,
+                           use_megakernel="never").solve()
+    assert sol._engine.can.M > 2048
+    assert json.loads(log.read_text().splitlines()[-1])["event"] == "cold_solve_crossover"
+    assert sol._engine.certified
+    assert rel_err(sol.objective(), ref_prob.solve().objective()) <= 1e-12
 
 
 def test_host_cold_route_above_2048_rows_matches_reference():
