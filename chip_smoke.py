@@ -115,6 +115,33 @@ failure (exit code 1; no result line is printed then):
    objective; required: finite iterates and a falling KKT.  Phase 4b also
    holds K2's 25fv47 objective to the reference's certified one (1e-9).
 
+8. The examples and the multi-device engines (no new kernel: the sharded
+   engines are torch ops and `torch.distributed` collectives).  (a) With
+   the default options: `examples/tsp.py` by branch-and-cut at n = 9
+   (against the brute force) and n = 16 (seed 0, against a Held–Karp
+   dynamic program in numpy), the cold solve through K1 and the nodes on
+   the incremental API; `examples/scenario_batch.py` at its default 512 ×
+   (16×24), every lane OPTIMAL after the f64 fallback; `examples/
+   netlib_runner.py` on an MPS file of the 25fv47 shape named SHAPE_25FV47
+   with `--expected` the reference's certified objective: exit code 0,
+   `pass_1e-6`, certified, through K2.  K1's and K2's launches on these
+   paths count as their own (`launches_by_path["examples"]`); each is
+   recorded and, after the path, held against its plain version on the
+   same inputs (K2 without phase 3b's one-block rerun).  (b) At the
+   `single_lp` 256x1024 shape (canonical, f64): `solve_canonical_sharded`,
+   `resolve_dual_sharded` after a cut appended by `incremental._append_row`,
+   `solve_pdhg_sharded` (vanilla, 6400 iterations) and
+   `solve_batch_sharded` on `make_random_batch_host(1, 64, 32, 96)`,
+   first in a one-rank NCCL world in this process, then in a two-rank gloo
+   world of two processes on the same card (`parallel.launch.run_world`),
+   with the dry run (`parallel.distributed.dryrun_multichip`) in each.
+   Required: the single-device engines' status, pivots, basis and
+   objective (1e-9) on the same card, the PDHG's status and iterations
+   with x and y within 1e-9, the batch bit-identical lane for lane.  It
+   logs the ms a pivot and an iteration against the single device's, and
+   the collectives a pivot and their share of the wall; two ranks share
+   one card, so none of it is a scaling figure.
+
 It prints the kernel table as one JSON line (each kernel's launches on its
 main paths, by path in `launches_by_path`: K1's and K2's cold solves of
 phases 4 and 4b and warm re-solves of phase 6, K3's batched path; its time
@@ -532,10 +559,11 @@ class CompareK2:
         return rel
 
     def run(self, tag, can, *, hi=None, warm_state=None, repeat=False, polished=False,
-            **over):
+            one_block=True, **over):
         """K2 and `stream_plain` on the first launch of `Problem.solve()`'s
         K2 route for `can` (upper bounds `hi`, `warm_state` and the options
-        in `over` replacing the driver's where given)."""
+        in `over` replacing the driver's where given); with `one_block`
+        also K2 on one block, bit for bit."""
         torch, ss = self.torch, self.ss
         launch = ss.prepare_launch(
             can.A, can.b, can.c, can.lo, can.hi if hi is None else hi,
@@ -544,11 +572,12 @@ class CompareK2:
         out_k, ms_k = timed(torch, call(ss.stream_kernel_call))
         rk = self.result(out_k, launch)
         majors, refreshes = out_k.monitor[5:7].tolist()
-        one, ms_one = timed(torch, call(ss.stream_kernel_call, blocks=1))
-        same_bits(tag, out_k, one)
         m, n = launch.A.shape
-        log(f"  {tag}: wide grid of {ss.default_blocks(DEVICE, m, n)} blocks and one block "
-            f"bit-identical (basis, vstat, B⁻¹, monitor); one_block_ms={ms_one:.3f}")
+        if one_block:
+            one, ms_one = timed(torch, call(ss.stream_kernel_call, blocks=1))
+            same_bits(tag, out_k, one)
+            log(f"  {tag}: wide grid of {ss.default_blocks(DEVICE, m, n)} blocks and one "
+                f"block bit-identical (basis, vstat, B⁻¹, monitor); one_block_ms={ms_one:.3f}")
         if repeat:
             again, ms_k2 = timed(torch, call(ss.stream_kernel_call))
             ra = self.result(again, launch)
@@ -931,10 +960,11 @@ def chain_problem(shape):
 
 
 @contextlib.contextmanager
-def recording_warm_launches():
-    """Record the warm K1 and K2 launches that the incremental path makes
-    through the driver's routes: a list of dicts (route, a copy of the
-    canonical LP, the warm state, whether the driver polished the claim)."""
+def recording_launches(cold=False):
+    """Record the warm K1 and K2 launches that the driver's routes make (and
+    with `cold` the cold ones too): a list of dicts (route, a copy of the
+    canonical LP, the warm state or None, whether the driver polished the
+    claim)."""
     from minilp_tpu_torch.engine import driver
 
     names = ("_try_megakernel_solve", "_try_streaming_solve", "_host_polish_from_basis")
@@ -943,10 +973,11 @@ def recording_warm_launches():
 
     def route(name):
         def call(can, opts, warm_state=None):
-            if warm_state is None:
+            if warm_state is None and not cold:
                 return saved[name](can, opts)
             seen.append(dict(route=name, polished=False,
-                             warm=tuple(np.array(x) for x in warm_state),
+                             warm=None if warm_state is None
+                             else tuple(np.array(x) for x in warm_state),
                              can=dataclasses.replace(can, A=can.A.copy(), b=can.b.copy(),
                                                      c=can.c.copy(), lo=can.lo.copy(),
                                                      hi=can.hi.copy())))
@@ -972,27 +1003,30 @@ def recording_warm_launches():
             setattr(driver, name, fn)
 
 
-def compare_warm_launches(tag, seen, max_iter, cmp_k1, cmp_k2):
-    """Hold a chain's warm kernel launches against their plain versions on
-    the same inputs: the first, the first at each new padded row count (the
-    row capacity grew), and every one whose claim the driver polished
-    (`assert_agree`'s `polished`)."""
+def compare_launches(tag, seen, max_iter, cmp_k1, cmp_k2, one_block=True):
+    """Hold a path's recorded kernel launches (`recording_launches`) against
+    their plain versions on the same inputs: the first, the first at each
+    new padded row count (the row capacity grew), and every one whose claim
+    the driver polished (`assert_agree`'s `polished`).  `one_block=False`
+    skips K2's one-block rerun."""
     shapes = set()
     for i, launch in enumerate(seen):
-        can, (basis, vstat, Binv) = launch["can"], launch["warm"]
+        can, warm = launch["can"], launch["warm"]
         pick = i == 0 or can.M not in shapes or launch["polished"]
         shapes.add(can.M)
         if not pick:
             continue
-        name = f"{tag} warm launch {i} M={can.M}" + (" (polished)" if launch["polished"] else "")
+        kind = "cold" if warm is None else "warm"
+        name = (f"{tag} {kind} launch {i} M={can.M}"
+                + (" (polished)" if launch["polished"] else ""))
         if launch["route"] == "_try_megakernel_solve":
             cmp_k1.run(name, can.A[None], can.b[None], can.c[None], can.lo[None], can.hi[None],
                        slack0=can.nv, max_iter=max_iter(can.M, can.N),
-                       warm=(basis[None], vstat[None], Binv[None]),
+                       warm=None if warm is None else tuple(x[None] for x in warm),
                        polished=launch["polished"])
         else:
-            cmp_k2.run(name, can, warm_state=(basis, vstat, Binv),
-                       polished=launch["polished"])
+            cmp_k2.run(name, can, warm_state=warm, polished=launch["polished"],
+                       one_block=one_block)
 
 
 def incremental_main_path(torch, rec_path, cmp_k1, cmp_k2, chains=CHAINS):
@@ -1021,7 +1055,7 @@ def incremental_main_path(torch, rec_path, cmp_k1, cmp_k2, chains=CHAINS):
             raise AssertionError(f"{tag}: cold solve records {events}, "
                                  f"certified {sol._engine.certified}")
         k1, k2, cold_pivots = bs.launches, ss.launches, sol._engine.iterations()
-        with recording_warm_launches() as seen:
+        with recording_launches() as seen:
             nodes = run_chain(sol, log_path=rec_path, sync=torch.cuda.synchronize)
         k1, k2 = bs.launches - k1, ss.launches - k2
         for i, node in enumerate(nodes):
@@ -1072,7 +1106,7 @@ def incremental_main_path(torch, rec_path, cmp_k1, cmp_k2, chains=CHAINS):
         if k1 + k2 < len(seen):
             raise AssertionError(f"{tag}: {len(seen)} warm kernel calls recorded, "
                                  f"{k1 + k2} launches counted")
-        compare_warm_launches(tag, seen, prob.options.effective_max_iter, cmp_k1, cmp_k2)
+        compare_launches(tag, seen, prob.options.effective_max_iter, cmp_k1, cmp_k2)
     log(f"  warm launches on the incremental path: K1 {warm['batched_simplex']}, "
         f"K2 {warm['streaming_simplex']}; {smi_name_power()}")
     return warm
@@ -1327,6 +1361,279 @@ def pdhg_maros_wall_bounded(torch, cert_obj, wall_s=PDHG_WALL_S, shape=MAROS):
         f"objective={obj!r} rel_gap_vs_certified={abs(obj - cert_obj) / (1 + abs(cert_obj)):.3e}")
 
 
+#: phase 8(a): the examples at their card sizes
+TSP_SIZES = (9, 16)
+SCENARIOS = (512, 16, 24)    # scenario_batch's default batch
+#: phase 8(b): the sharded engines at the `single_lp` 256x1024 shape
+SHARDED_PDHG_ITERS = 6400
+SHARDED_BATCH = (1, 64, 32, 96)   # make_random_batch_host(seed, batch, m, nv)
+ONE_RANK_BACKEND = "nccl"
+
+
+def held_karp(dist) -> float:
+    """The exact shortest tour by the Held–Karp dynamic program (numpy; an
+    oracle that uses nothing of the port)."""
+    n = dist.shape[0]
+    k = n - 1  # cities 1..n-1 are the bits of a mask
+    dp = np.full((1 << k, k), np.inf)
+    dp[1 << np.arange(k), np.arange(k)] = dist[0, 1:]
+    inner = dist[1:, 1:]
+    for mask in range(1, 1 << k):
+        row = dp[mask]
+        if not np.isfinite(row).any():
+            continue
+        step = (row[:, None] + inner).min(axis=0)  # best way into each city
+        for j in range(k):
+            if not mask >> j & 1:
+                nxt = mask | 1 << j
+                dp[nxt, j] = min(dp[nxt, j], step[j])
+    return float((dp[-1] + dist[1:, 0]).min())
+
+
+def _events(rec_path, n_rec):
+    return [json.loads(line)["event"] for line in rec_path.read_text().splitlines()[n_rec:]]
+
+
+@contextlib.contextmanager
+def recording_batch_calls(module):
+    """Record the K1 batch calls that `module` makes through its own name
+    `solve_batch_megakernel`: a list of (A, b, c, lo, hi, keywords)."""
+    saved, seen = module.solve_batch_megakernel, []
+
+    def call(A, b, c, lo, hi, **kw):
+        seen.append(tuple(np.array(x) for x in (A, b, c, lo, hi)) + (kw,))
+        return saved(A, b, c, lo, hi, **kw)
+
+    module.solve_batch_megakernel = call
+    try:
+        yield seen
+    finally:
+        module.solve_batch_megakernel = saved
+
+
+def examples_main_path(torch, rec_path, cmp_k1, cmp_k2, tsp_sizes=TSP_SIZES,
+                       scenarios=SCENARIOS, netlib=NETLIB["25fv47"], want_netlib=OBJ_25FV47):
+    """Phase 8(a): the three examples with the default options (device
+    "cuda"): TSP by branch-and-cut on the incremental API (n = 9 against
+    the brute force, n = 16 against Held–Karp), `scenario_batch` at its
+    default batch, `netlib_runner` on an MPS file of the 25fv47 shape under
+    a non-Netlib name with `--expected`.  Every K1 and K2 launch of the
+    path is recorded and, after the path, held against its plain version
+    on the same inputs (`cmp_k1`, `cmp_k2`).  Returns K1's and K2's
+    launches on the path."""
+    import collections
+    import io
+
+    from minilp_tpu_torch import SolverOptions
+    from minilp_tpu_torch.examples import netlib_runner, scenario_batch, tsp
+    from minilp_tpu_torch.io.mps import write_mps
+    from minilp_tpu_torch.ops.kernels import batched_simplex as bs, streaming_simplex as ss
+    from minilp_tpu_torch.utils.synth import netlib_shaped_problem
+
+    log("[8a] the examples on the card")
+    recorded = []  # (tag, launches through the driver's routes)
+    bs.launches = ss.launches = 0  # counts from here on are the examples' path
+    for n in tsp_sizes:
+        rng = np.random.default_rng(0)
+        pts = rng.random((n, 2))
+        dist = np.sqrt(((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1))
+        n_rec = len(rec_path.read_text().splitlines()) if rec_path.exists() else 0
+        k1 = bs.launches
+        t0 = time.perf_counter()
+        with recording_launches(cold=True) as seen:
+            solver = tsp.TspSolver(dist, device=DEVICE)
+            length, tour = solver.solve()
+        wall = time.perf_counter() - t0
+        recorded.append((f"TSP n={n}", seen))
+        events = _events(rec_path, n_rec)
+        t0 = time.perf_counter()
+        exact = float(tsp.tour_length_brute_force(dist) if n <= 9 else held_karp(dist))
+        oracle = "brute force" if n <= 9 else "Held-Karp"
+        if abs(length - exact) > 1e-9 * (1.0 + exact):
+            raise AssertionError(f"TSP n={n}: length {length!r} vs {oracle} {exact!r}")
+        if events[0] != "cold_solve_megakernel" or bs.launches == k1:
+            raise AssertionError(f"TSP n={n}: the cold solve went {events[0]}, not K1")
+        log(f"  TSP n={n} (seed 0, {n * (n - 1) // 2} edges): length={length!r} "
+            f"{oracle}={exact!r} ({time.perf_counter() - t0:.2f} s) nodes={solver.nodes} "
+            f"records={dict(collections.Counter(events))} K1 launches={bs.launches - k1} "
+            f"wall_s={wall:.3f} tour={sorted(tour)}")
+
+    k1 = bs.launches
+    with contextlib.redirect_stdout(io.StringIO()) as out, \
+            recording_batch_calls(scenario_batch) as batch_calls:
+        res = scenario_batch.main(*scenarios, device=DEVICE)
+    for line in out.getvalue().splitlines():
+        log("  scenario_batch: " + line)
+    if not (res["status"] == 1).all() or bs.launches == k1:
+        raise AssertionError(f"scenario_batch: statuses {np.unique(res['status'])}, "
+                             f"K1 launches {bs.launches - k1}")
+    batch = scenarios[0]
+    log(f"  scenario_batch {batch} x ({scenarios[1]}x{scenarios[2]}): K1 + certificate "
+        f"{res['kernel_s']:.3f} s = {batch / res['kernel_s']:.1f} certified LPs/s; "
+        f"fallback lanes {res['fallback'].tolist()} ({res['fallback_s']:.3f} s); "
+        f"every lane OPTIMAL")
+
+    path = rec_path.parent / "shape_25fv47.mps"
+    path.write_text(write_mps(netlib_shaped_problem(*netlib, seed=1), name="SHAPE_25FV47"))
+    k2 = ss.launches
+    n_rec = len(rec_path.read_text().splitlines())
+    with contextlib.redirect_stdout(io.StringIO()) as out, \
+            recording_launches(cold=True) as seen:
+        rc = netlib_runner.main([str(path), "--device", DEVICE,
+                                 f"--expected=shape_25fv47={want_netlib!r}"])
+    recorded.append(("netlib_runner", seen))
+    rec = json.loads(out.getvalue().splitlines()[0])
+    log(f"  netlib_runner: exit {rc} {json.dumps(rec)}")
+    events = _events(rec_path, n_rec)
+    if rc != 0 or rec.get("pass_1e-6") is not True or rec.get("certified") is not True:
+        raise AssertionError(f"netlib_runner at the 25fv47 shape: exit {rc}, {rec}")
+    if events != ["cold_solve_streaming"] or ss.launches == k2:
+        raise AssertionError(f"netlib_runner: records {events}, K2 launches {ss.launches - k2}")
+    counts = {"batched_simplex": bs.launches, "streaming_simplex": ss.launches}
+
+    # every launch above against its plain version on the same inputs (K2's
+    # one-block rerun is phase 3b's check, at this shape)
+    for tag, seen in recorded:
+        if not seen:
+            raise AssertionError(f"{tag}: no kernel launch recorded")
+        compare_launches(f"examples {tag}", seen, SolverOptions().effective_max_iter,
+                         cmp_k1, cmp_k2, one_block=False)
+    for A, b, c, lo, hi, kw in batch_calls:
+        m, n = A.shape[1:]
+        cmp_k1.run(f"examples scenario_batch {A.shape[0]} LPs", A, b, c, lo, hi,
+                   slack0=kw.get("slack0") or n - m, max_iter=kw.get("max_iter", 2000))
+    n_cmp = sum(len(seen) for _, seen in recorded) + len(batch_calls)
+    if n_cmp > counts["batched_simplex"] + counts["streaming_simplex"]:
+        raise AssertionError(f"{n_cmp} kernel calls recorded, launches counted {counts}")
+    return counts
+
+
+def _sharded_calls(inputs, cols, batch_mesh, dry):
+    """The calls of one world (`launch.run_calls`): the cold solve, the dual
+    re-solve, the row-sharded PDHG, the sharded batch, the dry run."""
+    eng = "minilp_tpu_torch.parallel.sharded_engine:"
+    return [
+        (cols, eng + "solve_canonical_sharded", inputs["cold"], {}),
+        (cols, eng + "resolve_dual_sharded", inputs["dual"], {}),
+        (cols, "minilp_tpu_torch.parallel.pdhg_sharded:solve_pdhg_sharded", inputs["pdhg"], {}),
+        (batch_mesh, "minilp_tpu_torch.parallel.batched:solve_batch_sharded", inputs["batch"], {}),
+        (None, "minilp_tpu_torch.parallel.distributed:dryrun_multichip", (dry,), {}),
+    ]
+
+
+def sharded_main_path(torch, card, shape=SINGLE_LP["256x1024"], batch=SHARDED_BATCH,
+                      pdhg_iters=SHARDED_PDHG_ITERS):
+    """Phase 8(b): the sharded engines against the single-device port on
+    the card, in a one-rank world (`ONE_RANK_BACKEND`, in process) and in a
+    two-rank gloo world on the same card (`launch.run_world`)."""
+    import torch.distributed as dist
+    from minilp_tpu_torch import ComparisonOp, SolverOptions
+    from minilp_tpu_torch.engine import incremental
+    from minilp_tpu_torch.engine.driver import EngineHandle
+    from minilp_tpu_torch.engine.dual import resolve_dual
+    from minilp_tpu_torch.engine.pdhg import solve_pdhg
+    from minilp_tpu_torch.engine.primal import solve_canonical
+    from minilp_tpu_torch.engine.state import state_to_numpy
+    from minilp_tpu_torch.parallel import launch
+    from minilp_tpu_torch.parallel.batched import make_random_batch_host, solve_batch
+    from minilp_tpu_torch.parallel.distributed import init_distributed
+    from minilp_tpu_torch.utils.synth import netlib_shaped_problem
+
+    log(f"[8b] the sharded engines on the card ({card}); the ranks of a world share "
+        f"this one card: the times are the cost of the code path, not a scaling figure")
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+
+    def timed_wall(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    prob = netlib_shaped_problem(*shape, seed=11)
+    can = canonical_instance(*shape, seed=11)
+    opts = SolverOptions(device=DEVICE)
+    host = lambda *xs: tuple(np.array(x) for x in xs)
+    cold_in = host(can.A, can.b, can.c, can.lo, can.hi, can.vstat0, can.basis0) + (opts,)
+    put = lambda xs: [torch.as_tensor(x, device=DEVICE) for x in xs]
+    ref_cold, cold_s = timed_wall(lambda: solve_canonical(*put(cold_in[:7]), opts))
+    # a cut of the optimum, appended as tests/test_parallel.py appends it
+    handle = EngineHandle(can, state_to_numpy(ref_cold), prob, opts)
+    coeffs = np.random.default_rng(7).normal(size=can.nv)
+    incremental._append_row(handle, coeffs, ComparisonOp.Le,
+                            float(coeffs @ handle._x_full()[: can.nv]) - 0.25)
+    c2 = handle.can
+    warm = host(handle.state.basis, handle.state.vstat, handle.state.Binv)
+    dual_in = host(c2.A, c2.b, c2.c, c2.lo, c2.hi) + warm + (opts,)
+    ref_dual, dual_s = timed_wall(lambda: resolve_dual(*put(dual_in[:8]), opts))
+    pdhg_opts = SolverOptions(engine="pdhg", pdhg_variant="vanilla", dtype="float64",
+                              pdhg_max_iter=pdhg_iters, device=DEVICE)
+    pdhg_in = cold_in[:5] + (pdhg_opts,)
+    ref_pdhg, pdhg_s = timed_wall(lambda: solve_pdhg(*put(pdhg_in[:5]), opts=pdhg_opts))
+    A, b, c, lo, hi = make_random_batch_host(*batch)
+    B, m, n = A.shape
+    vstat0 = np.full((B, n), 0, np.int8)
+    vstat0[:, n - m:] = 4  # AT_LOWER structurals, BASIC slacks
+    basis0 = np.tile(np.arange(n - m, n), (B, 1))
+    batch_in = (A, b, c, lo, hi, vstat0, basis0, opts)
+    ref_batch, batch_s = timed_wall(lambda: solve_batch(*put(batch_in[:7]), opts=opts))
+    log(f"  single device: cold {int(ref_cold.niter)} pivots in {cold_s:.3f} s "
+        f"({cold_s / int(ref_cold.niter) * 1e3:.3f} ms a pivot), status {int(ref_cold.status)}; "
+        f"dual re-solve after the cut {int(ref_dual.niter)} pivots in {dual_s:.3f} s, "
+        f"status {int(ref_dual.status)}; PDHG {int(ref_pdhg.niter)} iterations in "
+        f"{pdhg_s:.3f} s ({pdhg_s / int(ref_pdhg.niter) * 1e3:.4f} ms an iteration), "
+        f"status {int(ref_pdhg.status)}; batch of {B} in {batch_s:.3f} s")
+    inputs = dict(cold=cold_in, dual=dual_in, pdhg=pdhg_in, batch=batch_in)
+
+    worlds = {}
+    init_distributed(f"127.0.0.1:{launch.free_port()}", 1, 0, backend=ONE_RANK_BACKEND,
+                     timeout_s=300.0)
+    try:
+        worlds[f"1 rank, {ONE_RANK_BACKEND}"] = launch.to_host(launch.run_calls(
+            _sharded_calls(inputs, (1, 1), (1, 1), 1), device=DEVICE))
+    finally:
+        dist.destroy_process_group()
+    worlds["2 ranks, gloo, one card"] = launch.run_world(
+        "minilp_tpu_torch.parallel.launch:run_calls", 2, backend="gloo", device=DEVICE,
+        args=(_sharded_calls(inputs, (1, 2), (2, 1), 2),), timeout_s=600.0)[0]
+
+    for tag, (cold, dual, pd, bat, dry) in worlds.items():
+        for what, got, ref in (("cold solve", cold, ref_cold), ("dual re-solve", dual, ref_dual)):
+            r = got["result"]
+            same = (int(r["status"]) == int(ref.status) and int(r["niter"]) == int(ref.niter)
+                    and np.array_equal(np.sort(r["basis"]), np.sort(ref.basis.cpu().numpy())))
+            if not same or abs(float(r["obj"]) - float(ref.obj)) > 1e-9 * (1 + abs(float(ref.obj))):
+                raise AssertionError(f"{tag}, {what}: status {int(r['status'])} niter "
+                                     f"{int(r['niter'])} obj {float(r['obj'])!r} vs the single "
+                                     f"device's {int(ref.status)} {int(ref.niter)} {float(ref.obj)!r}")
+            piv = max(int(r["niter"]), 1)
+            log(f"  {tag}, {what}: {int(r['niter'])} pivots, status {int(r['status'])}, "
+                f"obj {float(r['obj'])!r} (single device {float(ref.obj)!r}), basis in the "
+                f"same order: {np.array_equal(r['basis'], ref.basis.cpu().numpy())}; "
+                f"{got['wall_s']:.3f} s = {got['wall_s'] / piv * 1e3:.3f} ms a pivot; "
+                f"{got['collectives'] / piv:.2f} collectives a pivot, "
+                f"{got['collective_s'] / got['wall_s']:.1%} of the wall in them")
+        r = pd["result"]
+        rel = lambda a, b: float(np.max(np.abs(a - b)) / (1.0 + np.max(np.abs(b))))
+        ex, ey = rel(r["x"], ref_pdhg.x.cpu().numpy()), rel(r["y"], ref_pdhg.y.cpu().numpy())
+        if (int(r["status"]), int(r["niter"])) != (int(ref_pdhg.status), int(ref_pdhg.niter)) \
+                or max(ex, ey) > 1e-9:
+            raise AssertionError(f"{tag}, PDHG: status {int(r['status'])} niter {int(r['niter'])}"
+                                 f" x {ex:.2e} y {ey:.2e} from the single device's")
+        log(f"  {tag}, row-sharded PDHG: {int(r['niter'])} iterations, status "
+            f"{int(r['status'])}, x and y within {ex:.2e} / {ey:.2e} (relative) of the single "
+            f"device's; {pd['wall_s']:.3f} s = {pd['wall_s'] / int(r['niter']) * 1e3:.4f} ms an "
+            f"iteration; {pd['collectives'] / int(r['niter']):.2f} collectives an iteration, "
+            f"{pd['collective_s'] / pd['wall_s']:.1%} of the wall in them")
+        r = bat["result"]
+        for field in ("obj", "niter", "basis", "status"):
+            if not np.array_equal(r[field], getattr(ref_batch, field).cpu().numpy()):
+                raise AssertionError(f"{tag}, sharded batch: {field} differs from solve_batch")
+        log(f"  {tag}, sharded batch of {B}: bit-identical to solve_batch lane for lane; "
+            f"{bat['wall_s']:.3f} s (single device {batch_s:.3f} s)")
+        log(f"  {tag}: {dry['result']}")
+
+
 def main() -> int:
     if not (HERE / "minilp_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: the minilp_tpu_torch package is not beside this "
@@ -1341,7 +1648,7 @@ def main() -> int:
 
 
 def phases(torch) -> int:
-    """Phases 1 to 7 (the module docstring)."""
+    """Phases 1 to 8 (the module docstring)."""
     t_start = time.perf_counter()
     sys.path.insert(0, str(HERE))
     import minilp_tpu_torch
@@ -1499,6 +1806,12 @@ def phases(torch) -> int:
     pdhg_engine_on_card(torch, rec_path, expected["single_lp_256x1024"])
     pdhg_maros_wall_bounded(torch, maros["objective"])
 
+    # ---- 8. the examples, then the sharded engines --------------------------
+    ex = examples_main_path(torch, rec_path, cmp_, cmp2)
+    if ex["batched_simplex"] <= 0 or ex["streaming_simplex"] <= 0:
+        raise AssertionError(f"the examples launched K1 and K2 {ex}")
+    sharded_main_path(torch, card)
+
     ms_k, ms_p = cmp_.times["single_lp_512x2048"]
     k1_bound = dense_simplex_bound(cmp_.niter["single_lp_512x2048"], 504, 2048)
     ms2_k, ms2_p = cmp2.times["25fv47"]
@@ -1506,9 +1819,11 @@ def phases(torch) -> int:
     tag3 = f"batch{BATCH}_32x128"
     ms3_k, ms3_p = cmp3.times[tag3]
     k3_bound = dense_simplex_bound(cmp3.niter[tag3], BATCH_M, BATCH_M + BATCH_NV)
-    by_path = {"batched_simplex": {"cold": k1_launches, "incremental": warm["batched_simplex"]},
+    by_path = {"batched_simplex": {"cold": k1_launches, "incremental": warm["batched_simplex"],
+                                   "examples": ex["batched_simplex"]},
                "streaming_simplex": {"cold": k2_launches,
-                                     "incremental": warm["streaming_simplex"]},
+                                     "incremental": warm["streaming_simplex"],
+                                     "examples": ex["streaming_simplex"]},
                "packed_simplex": {"batched": k3_launches}}
     row = lambda name, tpu_line, cmp, ms, plain_ms, bnd: {
         "name": name, "route": "cuda", "source": f"minilp_tpu_torch/csrc/{name}.cu",

@@ -33,22 +33,25 @@ import torch
 
 from ..options import SolverOptions
 from ..status import Status, VarStat
-from .basis import ftran, pfi_update, refactorize
-from .primal import _entering_value
+from .basis import ftran, pfi_update
+from .columns import Columns
+from .primal import _entering_value, start_state
 from .state import SimplexState
 
 
-def make_dual_step(A, b, c, lo, hi, opts: SolverOptions):
-    """One dual simplex iteration; returns SimplexState -> SimplexState."""
+def _dual_loop(cols: Columns, opts: SolverOptions, state: SimplexState,
+               max_iter: int) -> SimplexState:
+    """Dual simplex iterations from `state` while RUNNING and below
+    `max_iter`; `cols` holds the LP's columns (`engine/columns.py`)."""
     period = opts.effective_refactor_period()
+    basis, vstat, xB, d, Binv, obj = state[:6]
+    niter, status = int(state.niter), int(state.status)
+    noimprove, best = int(state.noimprove), state.best
+    inf = torch.full_like(best, torch.inf)
+    loB, hiB = cols.basic_bounds(basis)
 
-    def step(state: SimplexState) -> SimplexState:
-        basis, vstat, xB, d, Binv, obj = state[:6]
-        niter, status = int(state.niter), int(state.status)
-        noimprove, best = int(state.noimprove), state.best
-        loB, hiB = lo[basis], hi[basis]
+    while cols.running(status, niter, max_iter):
         bland = noimprove >= opts.bland_after
-
         # -- leaving row: exact dual steepest edge (the true reference weights
         # are the squared row norms of the explicit inverse)
         viol_lo = torch.clamp(loB - xB, min=0.0)
@@ -66,36 +69,32 @@ def make_dual_step(A, b, c, lo, hi, opts: SolverOptions):
             up = bool(viol_lo[r] > 0)
             e = 1.0 if up else -1.0
             target = loB[r] if up else hiB[r]
-            alpha = Binv[r] @ A
+            alpha = Binv[r] @ cols.A
             at = e * alpha
             elig = (
                 ((vstat == VarStat.AT_LOWER) & (at < -opts.pivot_tol))
                 | ((vstat == VarStat.AT_UPPER) & (at > opts.pivot_tol))
                 | ((vstat == VarStat.FREE) & (at.abs() > opts.pivot_tol))
             )
-            if not bool(elig.any()):
+            abs_alpha = alpha.abs()
+            theta = torch.where(elig, d.abs() / abs_alpha, inf)
+            relaxed = torch.where(elig, (d.abs() + opts.opt_tol) / abs_alpha, inf)
+            theta_min, t_relaxed, none_elig = cols.min(torch.stack([
+                theta.min(), relaxed.min(), (~elig.any()).to(theta.dtype)]))
+            if bool(none_elig):
                 status = int(Status.INFEASIBLE)  # dual unbounded
             else:
-                inf = torch.full_like(d, torch.inf)
-                abs_alpha = alpha.abs()
-                theta = torch.where(elig, d.abs() / abs_alpha, inf)
-                theta_min = theta.min()
                 # Harris two-pass: the relaxed step, then the largest |α|
                 # among the candidates under it, widened by the tie window
-                t_relaxed = torch.where(elig, (d.abs() + opts.opt_tol) / abs_alpha, inf).min()
                 tie = elig & ((theta <= t_relaxed) | (
                     theta <= theta_min * (1.0 + opts.ratio_tie_rel) + opts.ratio_tie_abs))
-                if bland:
-                    n = d.shape[0]
-                    idx = torch.arange(n, device=d.device)
-                    q = int(torch.argmin(torch.where(tie, idx, n)))
-                else:
-                    q = int(torch.argmax(torch.where(tie, abs_alpha, -inf)))
-
-                dq_step = (xB[r] - target) / alpha[q]
-                w = ftran(Binv, A[:, q])
-                rng_q = hi[q] - lo[q]
-                vq = int(vstat[q])
+                _, q = cols.choose(torch.where(tie, abs_alpha, -torch.inf), tie, bland)
+                Acol, (dq, alpha_q, lo_q, hi_q, vq) = cols.gather_column(
+                    q, d, alpha, cols.lo, cols.hi, vstat)
+                dq_step = (xB[r] - target) / alpha_q
+                w = ftran(Binv, Acol)
+                rng_q = hi_q - lo_q
+                vq = int(vq)
                 if bool(rng_q <= dq_step.abs()):
                     # bound flip: the entering variable crosses its own range;
                     # AT_LOWER always steps up and AT_UPPER down (eligibility
@@ -103,12 +102,12 @@ def make_dual_step(A, b, c, lo, hi, opts: SolverOptions):
                     step_f = torch.sign(dq_step) * rng_q
                     xB = xB - step_f * w
                     vstat = vstat.clone()
-                    vstat[q] = int(VarStat.AT_UPPER if vq == VarStat.AT_LOWER
-                                   else VarStat.AT_LOWER)
-                    obj = obj + d[q] * step_f
+                    cols.set(vstat, q, int(VarStat.AT_UPPER if vq == VarStat.AT_LOWER
+                                           else VarStat.AT_LOWER))
+                    obj = obj + dq * step_f
                 else:
                     # basis exchange
-                    enter_val = _entering_value(vq, lo[q], hi[q]) + dq_step
+                    enter_val = _entering_value(vq, lo_q, hi_q) + dq_step
                     xB = xB - dq_step * w
                     xB[r] = enter_val
                     lv = int(basis[r])
@@ -117,16 +116,18 @@ def make_dual_step(A, b, c, lo, hi, opts: SolverOptions):
                     else:
                         lstat = VarStat.AT_LOWER if up else VarStat.AT_UPPER
                     vstat = vstat.clone()
-                    vstat[lv] = int(lstat)
-                    vstat[q] = int(VarStat.BASIC)
+                    cols.set(vstat, lv, int(lstat))
+                    cols.set(vstat, q, int(VarStat.BASIC))
                     basis = basis.clone()
                     basis[r] = q
+                    loB, hiB = loB.clone(), hiB.clone()
+                    loB[r], hiB[r] = lo_q, hi_q
                     Binv = pfi_update(Binv, w, r)
-                    delta_dual = d[q] / alpha[q]
-                    obj = obj + d[q] * dq_step
+                    delta_dual = dq / alpha_q
+                    obj = obj + dq * dq_step
                     d = d - delta_dual * alpha
-                    d[q] = 0.0
-                    d[lv] = -delta_dual
+                    cols.set(d, q, 0.0)
+                    cols.set(d, lv, -delta_dual)
                     d = torch.where(vstat == VarStat.BASIC, 0.0, d)
 
         # -- progress and periodic refactorization
@@ -136,30 +137,30 @@ def make_dual_step(A, b, c, lo, hi, opts: SolverOptions):
         if took_step:
             niter += 1
             if niter % period == 0 and status == Status.RUNNING:
-                Binv, xB, d, obj, ok = refactorize(
-                    A, b, c, lo, hi, basis, vstat, Binv,
-                    newton_iters=opts.newton_refine_iters,
-                )
+                Binv, xB, d, loB, hiB, obj, ok = cols.refactorize(
+                    basis, vstat, Binv, opts.newton_refine_iters)
                 if not ok:
                     status = int(Status.NUMERICAL)
-        i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=A.device)
-        return state._replace(
-            basis=basis, vstat=vstat, xB=xB, d=d, Binv=Binv, obj=obj,
-            niter=i32(niter), status=i32(status), noimprove=i32(noimprove), best=best,
-        )
-
-    return step
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=cols.device)
+    return state._replace(
+        basis=basis, vstat=vstat, xB=xB, d=d, Binv=Binv, obj=obj,
+        niter=i32(niter), status=i32(status), noimprove=i32(noimprove), best=best,
+    )
 
 
-def run_dual(A, b, c, lo, hi, opts: SolverOptions, state: SimplexState,
+def make_dual_step(A, b, c, lo, hi, opts: SolverOptions):
+    """One dual simplex iteration; returns SimplexState -> SimplexState."""
+    cols = Columns(A, b, c, lo, hi)
+    return lambda state: _dual_loop(cols, opts, state, int(state.niter) + 1)
+
+
+def run_dual(cols: Columns, opts: SolverOptions, state: SimplexState,
              max_iter: int) -> SimplexState:
     """Dual simplex until primal feasible (OPTIMAL), INFEASIBLE, or MAX_ITER."""
-    step = make_dual_step(A, b, c, lo, hi, opts)
-    while int(state.status) == Status.RUNNING and int(state.niter) < max_iter:
-        state = step(state)
+    state = _dual_loop(cols, opts, state, max_iter)
     if int(state.status) == Status.RUNNING:
         state = state._replace(status=torch.tensor(
-            int(Status.MAX_ITER), dtype=torch.int32, device=A.device))
+            int(Status.MAX_ITER), dtype=torch.int32, device=cols.device))
     return state
 
 
@@ -176,27 +177,7 @@ def resolve_dual(A, b, c, lo, hi, basis, vstat, Binv0,
     extends it analytically when a row is added).
     """
     M, N = A.shape
-    dtype, dev = A.dtype, A.device
-    basis = torch.as_tensor(basis, device=dev).to(torch.int64)
-    vstat = torch.as_tensor(vstat, device=dev).to(torch.int8)
-    Binv0 = torch.as_tensor(Binv0, dtype=dtype, device=dev)
-    Binv, xB, d, obj, ok = refactorize(
-        A, b, c, lo, hi, basis, vstat, Binv0,
-        newton_iters=opts.newton_refine_iters,
-    )
-    i32 = lambda v: torch.tensor(int(v), dtype=torch.int32, device=dev)
-    state = SimplexState(
-        basis=basis,
-        vstat=vstat,
-        xB=xB,
-        d=d,
-        Binv=Binv,
-        obj=obj,
-        niter=i32(0),
-        status=i32(Status.RUNNING if ok else Status.NUMERICAL),
-        noimprove=i32(0),
-        best=torch.tensor(torch.inf, dtype=dtype, device=dev),
-        weights=torch.ones_like(d),
-        phase=i32(2),
-    )
-    return run_dual(A, b, c, lo, hi, opts, state, opts.effective_max_iter(M, N))
+    cols = Columns(A, b, c, lo, hi)
+    Binv0 = torch.as_tensor(Binv0, dtype=A.dtype, device=A.device)
+    state = start_state(cols, basis, vstat, Binv0, opts, phase=2)
+    return run_dual(cols, opts, state, opts.effective_max_iter(M, N))

@@ -39,6 +39,19 @@ def eligibility(d: torch.Tensor, vstat: torch.Tensor, opt_tol: float):
     return elig_up, elig_dn
 
 
+def entering_scores(d: torch.Tensor, vstat: torch.Tensor, opt_tol: float,
+                    weights: Optional[torch.Tensor] = None):
+    """(score, elig): each column's pricing score, −inf where it may not
+    enter, and the eligibility mask.  The score is d_j² (Dantzig), or
+    d_j²/γ_j with steepest-edge/Devex `weights` γ."""
+    elig_up, elig_dn = eligibility(d, vstat, opt_tol)
+    elig = elig_up | elig_dn
+    score = d * d
+    if weights is not None:
+        score = score / torch.clamp(weights, min=1e-12)
+    return torch.where(elig, score, -torch.inf), elig
+
+
 def choose_entering(
     d: torch.Tensor,
     vstat: torch.Tensor,
@@ -53,17 +66,13 @@ def choose_entering(
     * `bland`: lowest eligible index — anti-cycling fallback.
     """
     n = d.shape[0]
-    elig_up, elig_dn = eligibility(d, vstat, opt_tol)
-    elig = elig_up | elig_dn
+    score, elig = entering_scores(d, vstat, opt_tol, weights)
     found = bool(elig.any())
     if bland:
         idx = torch.arange(n, device=d.device)
         q = int(torch.argmin(torch.where(elig, idx, n)))
     else:
-        score = d * d
-        if weights is not None:
-            score = score / torch.clamp(weights, min=1e-12)
-        q = int(torch.argmax(torch.where(elig, score, -torch.inf)))
+        q = int(torch.argmax(score))
     direction = 1.0 if float(d[q]) < 0 else -1.0
     return EnteringChoice(q=q, direction=direction, found=found)
 

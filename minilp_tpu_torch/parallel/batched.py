@@ -10,12 +10,14 @@ them.  Entry points:
 * `solve_batch_certified` — one batch through K1 in batch mode (one LP per
   thread block), every lane certified;
 * `solve_batch` — the f64 torch engine, lane after lane;
+* `solve_batch_sharded` — the same, the batch split over the ranks of a
+  mesh's 'data' axis (`torch.distributed`, no communication until the
+  result is put back together);
 * `resolve_unverified_host` — the shared tail: an exact scipy-HiGHS re-solve
   of every lane whose f32 basis failed the f64 certificate.
 
 The device is explicit (`device="cuda"` by default, "cpu" runs every kernel
-as its plain torch version).  The sharded batch (`solve_batch_sharded`) is
-multi-device and not ported yet.
+as its plain torch version).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..options import SolverOptions
 from ..status import Status, VarStat
 from ..utils import profiling
 from ..utils.synth import random_batch as make_random_batch_host
+from .mesh import BATCH_AXIS, assemble, batch_block
 from .scheduling import difficulty_scores, sort_for_packing
 
 __all__ = [
@@ -42,6 +45,7 @@ __all__ = [
     "resolve_unverified_host",
     "solve_batch",
     "solve_batch_certified",
+    "solve_batch_sharded",
     "solve_batches_pipelined",
 ]
 
@@ -58,6 +62,19 @@ def solve_batch(A, b, c, lo, hi, vstat0, basis0, opts: SolverOptions) -> Simplex
     lanes = [solve_canonical(A[i], b[i], c[i], lo[i], hi[i], vstat0[i], basis0[i], opts)
              for i in range(A.shape[0])]
     return SimplexState(*(torch.stack(field) for field in zip(*lanes)))
+
+
+def solve_batch_sharded(mesh, A, b, c, lo, hi, vstat0, basis0, opts: SolverOptions) -> SimplexState:
+    """Same, with the batch axis split over the mesh's 'data' axis (pure DP).
+
+    Every rank of the mesh calls it with the whole batch; each solves its
+    slice (the batch size must divide over the axis), and the lanes are put
+    back together bit for bit, so every rank returns the whole batched
+    state, lane for lane `solve_batch`'s on the same device.
+    """
+    local = solve_batch(*(batch_block(mesh, x) for x in (A, b, c, lo, hi, vstat0, basis0)),
+                        opts=opts)
+    return SimplexState(*(assemble(mesh, f, BATCH_AXIS, 0) for f in local))
 
 
 def resolve_unverified_host(res, A, b, c, lo, hi):
