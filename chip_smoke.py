@@ -33,8 +33,9 @@ failure (exit code 1; no result line is printed then):
    on each of these cases, and on every chunk of the 25fv47 chunk loop
    driven through `stream_kernel_call`, its outputs (basis, vstat, the
    bits of B⁻¹, the monitor) must equal bit for bit those of the same
-   launch on one block.  `utils/k2_split.py` gives the grid's per-refresh
-   and per-major times at 25fv47;
+   launch on one block, and the pivots and majors at 25fv47 repeat
+   (13974, 4642).  `utils/k2_split.py` gives the grid's and one block's
+   per-refresh and per-major times at 25fv47;
 3c. K3 against its plain torch version on the card, on the same device
    inputs: a batch of 1024 of `bench.py`'s 32×128 LPs at pack 8 (seed 0),
    the first batch of phase 5 (seed 1, held to the plain version lane by
@@ -57,7 +58,8 @@ failure (exit code 1; no result line is printed then):
 4b. the main path through K2, `Problem.solve()` with the default options on
    the 25fv47 and fit1p shapes (K2 at (824, 2432) and (632, 2432)), a cold
    and a second solve each.  Required: only the `cold_solve_streaming`
-   record, K2 launched, a certified solution within 1e-6 relative of HiGHS.
+   record, K2 launched, a certified solution within 1e-6 relative of HiGHS,
+   and the pivots of the parent kernel (13974 and 11322).
    The route the port took before K2 (`use_streaming="never"`: the f64
    torch engine on the card) is timed once on the 25fv47 shape;
 5. the batched main path through K3, as `bench.py`'s batched line runs it:
@@ -189,6 +191,9 @@ K3_PIVOTS = {f"batch{BATCH}_32x128": 178961, "netlib_shaped_60x150_replicated": 
 # version's at pivot 127 on K3's f32 x_B of one row (`utils/k3_lane.py`;
 # ROADMAP Queue 3)
 K3_UNVERIFIED_SEED1 = [293, 471]
+# K2's pivots and majors at the Netlib shapes on the main path's launch
+# (PERF.md §5), which every change of the kernel that keeps its bits repeats
+K2_COUNTS = {"25fv47": (13974, 4642), "fit1p": (11322, None)}
 #: the reference's certified objective at the 25fv47 shape (seed 1), from the
 #: JAX package on the CPU (`tests/test_torch_crossover.py`, OBJ_25FV47)
 OBJ_25FV47 = -685.0486724425741
@@ -1731,10 +1736,17 @@ def phases(torch) -> int:
     cmp2.run("25fv47_warm_tightened", can, hi=hi2, warm_state=(cold2[0], cold2[1], Binv0))
     cmp2.run("256x1024_long_step", cans["256x1024"], long_step_min_m=0)
     chunked_wide_vs_one_block(torch, ss, can, k2_options(can))
-    k2s = k2_split.split("25fv47")
-    log(f"  K2 grid: G={k2s['blocks']} blocks on {k2s['sm_count']} SMs; k2_split at "
-        f"25fv47: refresh_ms={k2s['refresh_ms']:.3f} major_ms={k2s['major_ms']:.4f} "
-        f"default run {k2s['default']}")
+    k2s = k2_split.split("25fv47", clocks=False)
+    g, one = k2s["grid"], k2s["one_block"]
+    log(f"  K2 at 25fv47 (k2_split): grid of G={k2s['blocks']} blocks on {k2s['sm_count']} "
+        f"SMs: major_ms={g['major_ms']:.4f} refresh_ms={g['refresh_ms']:.3f}; one block: "
+        f"major_ms={one['major_ms']:.4f} refresh_ms={one['refresh_ms']:.3f}; "
+        f"default runs grid {g['default']} one block {one['default']}")
+    for run in (g["default"], one["default"], dict(zip(("pivots", "majors"),
+                                                        cmp2.counts["25fv47"][2:4]))):
+        if (run["pivots"], run["majors"]) != K2_COUNTS["25fv47"]:
+            raise AssertionError(f"K2 at 25fv47: pivots and majors {run}, "
+                                 f"expected {K2_COUNTS['25fv47']}")
 
     # ---- 3c. K3 against its plain version on the card -----------------------
     cmp3 = compare_k3(torch)
@@ -1775,8 +1787,12 @@ def phases(torch) -> int:
     want = {tag: highs_objective(make()) for tag, make in netlib.items()}
     ss.launches = 0  # counts from here on are the main path's
     for tag, make in netlib.items():
-        solve_main_path(tag, make, want[tag], "cold_solve_streaming", rec_path,
-                        ref=OBJ_25FV47 if tag == "25fv47" else None)
+        _walls, _stages, pivots = solve_main_path(
+            tag, make, want[tag], "cold_solve_streaming", rec_path,
+            ref=OBJ_25FV47 if tag == "25fv47" else None)
+        if pivots != K2_COUNTS[tag][0]:
+            raise AssertionError(f"{tag}: K2 took {pivots} pivots, expected "
+                                 f"{K2_COUNTS[tag][0]}")
     k2_launches = ss.launches
     if k2_launches <= 0:
         raise AssertionError("the main path never launched K2")

@@ -35,28 +35,44 @@
 // (8 MB) and B^-1 (2.7 MB) cannot live in an SM's 227 KB of shared memory, so
 // they stay in global memory and, with the refresh scratch (3 m^2 floats,
 // 8 MB), resident in the 50 MB L2.  Shared memory holds the reduction
-// scratch, the double-buffered 128 x 16 GEMM slabs and the candidate lanes
-// (38 KB).
+// scratch, the double-buffered 128 x 16 GEMM slabs (in turn the column sums'
+// staged chunks and the merge's list heads) and the candidate lanes (37 KB).
 //
 // One cooperative grid of G blocks (one per SM) runs one LP.  Block 0, the
 // leader, runs the whole loop with block-uniform control flow (every loop
 // scalar comes from a block reduction), exactly as one block would.  Blocks
 // 1..G-1 are workers: they sleep on a command word in the workspace and join
-// only the m^3-class phases, the Newton refresh (two sweeps: 4 m x m
-// products, 4.5 GFLOP at m = 824) and the vector recompute (x_B, y, d and the
-// steepest-edge weights, an n x m x m product of 3.5 GFLOP).  Those phases
-// hand out output tiles, rows and columns over the grid with grid barriers
-// between dependent steps; every output keeps the fma chain it has on one
-// block, so the results are bit-identical for every G.  The refresh is then
-// bounded by the largest share of one block: the steepest-edge product gives
-// each block whole 128-row tiles (7 tiles of 128 x 128 at 25fv47, 19 row
-// tiles in all), since each weight sums its squares across the column tiles
-// of its row tile in order.  The majors stay on the leader: a major reads
-// Aᵀ once (pricing) plus B^-1 once or twice (y, and W), and the fold reads
-// and writes B^-1, so one SM's share of L2 bandwidth bounds them, with A
-// dense though it is about 1% full.  Spreading the majors over the grid,
-// with A sparse in pricing and W, is the next step.  The grid's machinery
-// (command word, barrier, worker loop) is shared with K1 in simplex_grid.cuh.
+// the phases the leader posts, each of which hands out output tiles, rows
+// and columns over the grid with grid barriers between dependent steps:
+// - the Newton refresh (two sweeps: 4 m x m products, 4.5 GFLOP at m = 824)
+//   and the vector recompute (x_B, y, d and the steepest-edge weights, an
+//   n x m x m product of 3.5 GFLOP);
+// - a major's pricing (`price`): y = c_B B^-1 or sigma B^-1 (32-column
+//   tiles of B^-1 staged through shared memory, one lane's chain a column),
+//   then Aᵀ y and the scores (a warp a row of Aᵀ); each block keeps the top
+//   `minor_k` (score, index) pairs of its own columns, and every block merges
+//   the G lists into the major's candidates, exactly the pairs and order the
+//   repeated argmax of one block picks, since `better` is a strict total
+//   order; then W = B^-1 A_cand (a warp a row of B^-1 and eight candidates);
+// - the fold of the eta ledger into B^-1 (`fold`): the gather of P, then
+//   B^-1 -= etasᵀ P, entries over the grid's threads.
+// Every output keeps the fma chain it has on one block, so the results are
+// bit-identical for every G.  The minors (ratio test, long step, the
+// updates of W, the ledger and x_B), the refresh decision and the terminal
+// claims stay on the leader.  A major is then bounded by its minors (about
+// three pivots at 25fv47, each a chain of block reductions on the leader's
+// SM: some 45% of a major), by latency-bound chains on few blocks (y's
+// column sums on 26 of 132 blocks, the merge on one warp) and by its five
+// grid barriers and two posts, not by bytes; A is still dense in pricing
+// and W though it is about 1% full.  The refresh is bounded by the
+// largest share of one block: the steepest-edge product gives each block
+// whole 128-row tiles (19 row tiles at 25fv47), since each weight sums its
+// squares across the column tiles of its row tile in order.  The grid's
+// machinery (command word, barrier, worker loop) is shared with K1 in
+// simplex_grid.cuh.
+//
+// Built with -DK2_CLOCKS, the leader also sums clock64() cycles per part of
+// a major (`streaming_simplex_clocks`).  The normal build carries no clocks.
 
 #include "simplex_common.cuh"
 #include "simplex_grid.cuh"
@@ -69,6 +85,47 @@ constexpr int kMaxK = 128;  // candidate lanes (minor_k <= kMaxK)
 constexpr int kTM = 128, kTN = 128, kTK = 16;
 constexpr int kPR = 4, kPC = 8;
 using Patch = float[kPR][kPC];
+// column sums: chunks of kCsRows rows of a 32-column tile staged in shared
+// memory, kCsPer rows by each of warps 1..15
+constexpr int kCsPer = 8, kCsRows = kCsPer * (kWarps - 1);
+
+#ifdef K2_CLOCKS
+// per part of a major: the leader's cycles summed over the launch; then the
+// majors they cover
+enum Part {
+  C_REFRESH,
+  C_PRICE_Y, C_PRICE_YSYNC, C_PRICE_D, C_PRICE_TOP, C_PRICE_SYNC, C_MERGE, C_TABLEAU, C_TABLEAU_SYNC,
+  C_MINORS,
+  C_FOLD_GATHER, C_FOLD_SYNC, C_FOLD_SUM, C_FOLD_SYNC2,
+  C_OTHER, kParts
+};
+__device__ unsigned long long g_clocks[kParts + 1];
+#define K2_TICK(part)                 \
+  do {                                \
+    const long long now_ = clock64(); \
+    clk[part] += now_ - clk_last;     \
+    clk_last = now_;                  \
+  } while (0)
+#define K2_MARK(k) \
+  if (blockIdx.x == 0 && threadIdx.x == 0) sm.mark[k] = clock64()
+// parts first, first + 1, ... end at the marks 0, 1, ... of a phase
+#define K2_SPANS(first, marks)                                          \
+  do {                                                                  \
+    for (int k_ = 0; k_ < (marks); ++k_)                                \
+      clk[(first) + k_] += sm.mark[k_] - (k_ ? sm.mark[k_ - 1] : clk_last); \
+    clk_last = sm.mark[(marks) - 1];                                    \
+  } while (0)
+#else
+#define K2_TICK(part) \
+  do {                \
+  } while (0)
+#define K2_MARK(k) \
+  do {             \
+  } while (0)
+#define K2_SPANS(first, marks) \
+  do {                         \
+  } while (0)
+#endif
 
 struct Params {
   int m, n, slack0, max_iter, refactor_period, newton_sweeps, bland_after, minor_k;
@@ -77,27 +134,56 @@ struct Params {
       minor_decay;
 };
 
+// One staged chunk of `colsums_staged`: kCsRows rows of a 32-column tile and
+// their weights.
+struct CsChunk {
+  float M[kCsRows][32];
+  float y[kCsRows];
+};
+
+// Shared scratch that the phases take in turn.
+union Slab {
+  struct {  // GEMM slabs, k-major; the padding keeps rows 16-byte aligned
+    float As[2][kTK][kTM + 4];
+    float Bs[2][kTK][kTN + 4];
+  } g;
+  CsChunk cs[2];  // column sums, double-buffered
+  struct {
+    float s[kThreads];  // a block's columns, a (score, column) a thread
+    int j[kThreads];
+    int pos[kMaxGrid];  // the merge: each block's list's head, at pos
+    float hs[kMaxGrid];
+    int hj[kMaxGrid];
+  } merge;
+};
+
 struct Smem {
   float red_f[kWarps];
   int red_i[kWarps];
-  // GEMM slabs, k-major; the padding keeps rows 16-byte aligned
-  alignas(16) float As[2][kTK][kTM + 4];
-  alignas(16) float Bs[2][kTK][kTN + 4];
+  alignas(16) Slab slab;
   // candidate lanes (the TPU kernel's (1, 128) lane records)
   int cand_ids[kMaxK];
   int vstat_cand[kMaxK];
-  int eta_rs[kMaxK];   // leaving row of each ledger eta
   float d_cand[kMaxK];
   float wts_cand[kMaxK];
   float alpha[kMaxK];   // column r of W: the pivot row over the candidates
   float etacol[kMaxK];  // column r of the eta ledger
   int lane_i[3];        // lane scan: found, k_devex, k_bland
   float lane_f[1];      // lane scan: max candidate score
+  int merged_i[2];      // the merge: eligible columns, candidates
+  float merged_f;       // the merge: the top score
   int cmd;              // a worker's current command
+#ifdef K2_CLOCKS
+  long long mark[7];    // the leader's clock at the marks of a phase
+#endif
 };
 
 // ---- the leader's commands to the grid (simplex_grid.cuh) ------------------
-constexpr unsigned kRecompute = 1, kRefresh = 2;
+// A command's argument rides above its low kCmdBits bits: kPrice's flags,
+// kFold's ledger length.
+constexpr unsigned kRecompute = 1, kRefresh = 2, kPrice = 3, kFold = 4;
+constexpr int kCmdBits = 4;
+constexpr unsigned kP1 = 1, kDense = 2, kBland = 4;  // kPrice's flags
 
 // One LP's global-memory state (the TPU kernel's VMEM scratch and outputs).
 struct Lp {
@@ -108,13 +194,17 @@ struct Lp {
   float *W, *etas, *P;                // minor_k x m
   float *xB, *loB, *hiB, *cB, *beff, *y, *ratio, *tgt, *grow;  // m
   float *d, *d1, *wts, *sc, *xn;      // n
+  float* lsc;                         // kMaxGrid x minor_k: each block's top scores
+  int* lid;                           // kMaxGrid x minor_k: and their columns
+  int* eta_rs;                        // minor_k: the leaving row of each ledger eta
+  int* part;                          // kMaxGrid x 3: list length, eligible, lowest eligible
 };
 
 // C (M x N) = A (M x K) * B (K x N), walked as 128 x 128 output tiles in
 // row-tile-major order with k in order, so every output is a fixed-order fma
 // chain (zero padding past K adds nothing).  A is row-major, (i, k) at
-// A[i * lda + k], or with kAT stored transposed, (i, k) at A[k * lda + i];
-// likewise B, (k, j) at B[k * ldb + j] or with kBT at B[j * ldb + k].  Each
+// A[i * lda + k]; B is (k, j) at B[k * ldb + j], or with kBT stored
+// transposed, (k, j) at B[j * ldb + k].  Each
 // slab load reads along the stored rows, and the next slab's loads are in
 // flight while the current one is multiplied.  epi(i0, j0, acc) runs in
 // every thread once per output tile, with the thread's patch at rows
@@ -122,7 +212,7 @@ struct Lp {
 // entries outside M x N hold zeros and epi skips them.  Over a grid, block
 // `rank` of `size` takes the work units rank, rank + size, ...: single tiles,
 // or with `row_units` whole row tiles, their column tiles in order.
-template <bool kAT, bool kBT, class Epi>
+template <bool kBT, class Epi>
 __device__ void gemm(const float* A, int lda, const float* B, int ldb, int M, int N,
                      int K, Epi epi, Smem& sm, int rank = 0, int size = 1,
                      bool row_units = false) {
@@ -135,8 +225,8 @@ __device__ void gemm(const float* A, int lda, const float* B, int ldb, int M, in
   float ra[kPer], rb[kPer];
   // element e of a slab: (row, k) of A and (k, col) of B, in load order
   auto a_at = [&](int e, int& r, int& k) {
-    r = kAT ? e % kTM : e / kTK;
-    k = kAT ? e / kTM : e % kTK;
+    r = e / kTK;
+    k = e % kTK;
   };
   auto b_at = [&](int e, int& k, int& cc) {
     k = kBT ? e % kTK : e / kTN;
@@ -152,8 +242,7 @@ __device__ void gemm(const float* A, int lda, const float* B, int ldb, int M, in
         int r, k, cc;
         a_at(e, r, k);
         const int gi = i0 + r, gk = k0 + k;
-        ra[u] = (gi < M && gk < K)
-                    ? (kAT ? A[(size_t)gk * lda + gi] : A[(size_t)gi * lda + gk]) : 0.f;
+        ra[u] = (gi < M && gk < K) ? A[(size_t)gi * lda + gk] : 0.f;
         b_at(e, k, cc);
         const int gk2 = k0 + k, gj = j0 + cc;
         rb[u] = (gk2 < K && gj < N)
@@ -166,9 +255,9 @@ __device__ void gemm(const float* A, int lda, const float* B, int ldb, int M, in
         const int e = tid + u * kThreads;
         int r, k, cc;
         a_at(e, r, k);
-        sm.As[buf][k][r] = ra[u];
+        sm.slab.g.As[buf][k][r] = ra[u];
         b_at(e, k, cc);
-        sm.Bs[buf][k][cc] = rb[u];
+        sm.slab.g.Bs[buf][k][cc] = rb[u];
       }
     };
     float acc[kPR][kPC];
@@ -184,9 +273,9 @@ __device__ void gemm(const float* A, int lda, const float* B, int ldb, int M, in
       if (sl + 1 < slabs) fetch(sl + 1);
 #pragma unroll
       for (int k = 0; k < kTK; ++k) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&sm.As[buf][k][ty * kPR]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&sm.Bs[buf][k][tx * kPC]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&sm.Bs[buf][k][tx * kPC + 4]);
+        const float4 a4 = *reinterpret_cast<const float4*>(&sm.slab.g.As[buf][k][ty * kPR]);
+        const float4 b0 = *reinterpret_cast<const float4*>(&sm.slab.g.Bs[buf][k][tx * kPC]);
+        const float4 b1 = *reinterpret_cast<const float4*>(&sm.slab.g.Bs[buf][k][tx * kPC + 4]);
         const float av[kPR] = {a4.x, a4.y, a4.z, a4.w};
         const float bv[kPC] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -228,6 +317,51 @@ __device__ void colsums_rows(const float* y, Row row, int rows, int cols, F f, i
   }
 }
 
+// f(j, sum_i y(i) M[i, j]) for each column j < cols, with the chain of
+// `colsums` (simplex_common.cuh): fmaf over i in order from 0.  A block takes
+// 32-column tiles (rank, rank + size, ...); warps 1.. stage each chunk of
+// kCsRows rows of the tile (kCsPer rows a warp, loaded together) and its
+// weights y(i) in shared memory while warp 0 runs the previous chunk's
+// chains, one column a lane.
+template <class Y, class F>
+__device__ void colsums_staged(Y y, const float* M, int rows, int cols, F f, Smem& sm,
+                               int rank, int size) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chunks = (rows + kCsRows - 1) / kCsRows;
+  for (int t = rank; t * 32 < cols; t += size) {
+    const int j = t * 32 + lane;
+    auto stage = [&](int c) {  // warps 1..kWarps-1
+      CsChunk& ch = sm.slab.cs[c & 1];
+      float v[kCsPer];
+#pragma unroll
+      for (int u = 0; u < kCsPer; ++u) {
+        const int i = c * kCsRows + (warp - 1) + u * (kWarps - 1);
+        v[u] = (i < rows && j < cols) ? M[(size_t)i * cols + j] : 0.f;
+      }
+      const int r = threadIdx.x - 32;
+      const float yr = (r < kCsRows && c * kCsRows + r < rows) ? y(c * kCsRows + r) : 0.f;
+#pragma unroll
+      for (int u = 0; u < kCsPer; ++u) ch.M[(warp - 1) + u * (kWarps - 1)][lane] = v[u];
+      if (r < kCsRows) ch.y[r] = yr;
+    };
+    if (warp > 0) stage(0);
+    __syncthreads();
+    float acc = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      if (warp == 0) {
+        const CsChunk& ch = sm.slab.cs[c & 1];
+        const int nr = min(kCsRows, rows - c * kCsRows);
+#pragma unroll 8
+        for (int r = 0; r < nr; ++r) acc = fmaf(ch.y[r], ch.M[r][lane], acc);
+      } else if (c + 1 < chunks) {
+        stage(c + 1);
+      }
+      __syncthreads();
+    }
+    if (warp == 0 && j < cols) f(j, acc);
+  }
+}
+
 __device__ __forceinline__ float sigma_of(float x, float lb, float ub, float ftol) {
   return x < lb - ftol ? -1.f : (x > ub + ftol ? 1.f : 0.f);
 }
@@ -263,7 +397,8 @@ __device__ __noinline__ void recompute_vectors(const Lp& L, const Params& p, Sme
            rank, size);
     grid_sync(ctl, size);
   }
-  colsums(L.cB, L.Binv, m, m, [&](int j, float acc) { L.y[j] = acc; }, rank, size);
+  colsums_staged([&](int i) { return L.cB[i]; }, L.Binv, m, m,
+                 [&](int j, float acc) { L.y[j] = acc; }, sm, rank, size);
   grid_sync(ctl, size);
   matvec(L.AT, L.y, n, m, [&](int j, float acc) {
     L.d[j] = L.vstat[j] == BASIC ? 0.f : L.c[j] - acc;
@@ -274,7 +409,7 @@ __device__ __noinline__ void recompute_vectors(const Lp& L, const Params& p, Sme
     // half-warp shares the running sums of its four rows); a block takes
     // whole row tiles, so each sum keeps its order
     float g[kPR] = {0.f, 0.f, 0.f, 0.f};
-    gemm<false, true>(L.AT, m, L.Binv, m, n, m, m,
+    gemm<true>(L.AT, m, L.Binv, m, n, m, m,
                       [&](int i0, int j0, Patch& acc) {
                         const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
@@ -308,7 +443,7 @@ __device__ void newton_refresh(const Lp& L, const Params& p, Smem& sm, Ctl* ctl)
   for (int s = 0; s < p.newton_sweeps; ++s) {
     tmax = 0.f;
     // H = X B, with B(k, j) = Bᵀ[j, k]; the telltale reads I - H
-    gemm<false, true>(L.Binv, m, L.BT, m, m, m, m,
+    gemm<true>(L.Binv, m, L.BT, m, m, m, m,
                       [&](int i0, int j0, Patch& acc) {
                         const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
                         for (int a = 0; a < kPR; ++a)
@@ -322,7 +457,7 @@ __device__ void newton_refresh(const Lp& L, const Params& p, Smem& sm, Ctl* ctl)
                       sm, rank, size);
     grid_sync(ctl, size);
     // X' = 2X - H X
-    gemm<false, false>(L.H, m, L.Binv, m, m, m, m,
+    gemm<false>(L.H, m, L.Binv, m, m, m, m,
                        [&](int i0, int j0, Patch& acc) {
                          const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
                          for (int a = 0; a < kPR; ++a)
@@ -352,6 +487,261 @@ __device__ __noinline__ float refresh(const Lp& L, const Params& p, Smem& sm, Ct
   float tell = ctl->tell[0];
   for (int r = 1; r < (int)gridDim.x; ++r) tell = max_nan(tell, ctl->tell[r]);
   return tell;
+}
+
+// What a major's pricing gives the leader.
+struct Priced {
+  int nelig, ncand;  // eligible columns; candidates taken (in sm.cand_ids)
+  float best0;       // the top score, NaN-propagating; -inf when none is eligible
+};
+
+// A major's pricing, run by every block of the grid (`flags`: kP1 in phase 1,
+// kDense to compute y and the reduced costs, kBland under Bland):
+// 1. y = sigma B^-1 (phase 1) or c_B B^-1, a block's 32-column tiles;
+// 2. d1 or d = the reduced costs over the block's rows of Aᵀ (matvec's
+//    share), then their scores; the block's top `minor_k` (score, column)
+//    pairs in `better`'s order (one under Bland), into its list in the
+//    workspace with its eligible count and lowest eligible column: by rank
+//    when each thread holds at most one column (a grid at Netlib scale),
+//    else by repeated argmax over the block's columns;
+// 3. every block merges the G lists into the candidates: `ncand` rounds of
+//    a warp argmax over the list heads, each lane holding the heads of
+//    blocks lane, lane + 32, ...; under Bland the candidate is the lowest
+//    eligible column;
+// 4. W[k, i] = Binv[i, :] . Aᵀ[q_k, :], a warp a row of B^-1 and a group of
+//    eight candidates.
+// Without kDense (phase 2 right after a refresh) d is already fresh and step
+// 1 and the product of step 2 are skipped.  Inlined, as `fold` is: as calls,
+// the two made ptxas save more of the leader's registers around them (176 B
+// of spill stores in the kernel against 104 inlined).
+__device__ __forceinline__ Priced price(const Lp& L, const Params& p, Smem& sm, Ctl* ctl,
+                                     unsigned flags) {
+  const int m = p.m, n = p.n, K = p.minor_k, tid = threadIdx.x;
+  const int rank = blockIdx.x, size = gridDim.x;
+  const bool p1 = flags & kP1, bland = flags & kBland;
+  float* dcur = p1 ? L.d1 : L.d;
+  if (flags & kDense) {
+    if (p1)
+      colsums_staged([&](int i) { return sigma_of(L.xB[i], L.loB[i], L.hiB[i], p.feas_tol); },
+                     L.Binv, m, m, [&](int k, float acc) { L.y[k] = acc; }, sm, rank, size);
+    else
+      colsums_staged([&](int i) { return L.cB[i]; }, L.Binv, m, m,
+                     [&](int k, float acc) { L.y[k] = acc; }, sm, rank, size);
+    K2_MARK(0);
+    grid_sync(ctl, size);
+    K2_MARK(1);
+    matvec(L.AT, L.y, n, m, [&](int j, float acc) {
+      dcur[j] = L.vstat[j] == BASIC ? 0.f : (p1 ? -acc : L.c[j] - acc);
+    }, rank, size);
+    __syncthreads();  // the block's rows of d are written
+  } else {
+    K2_MARK(0);
+    K2_MARK(1);
+  }
+  K2_MARK(2);
+  // the block's columns: matvec's rows, warp w of pass t taking row
+  // (t size + rank) kWarps + w; column number e of the block is own(e)
+  auto own = [&](int e) { return ((e / kWarps) * size + rank) * kWarps + e % kWarps; };
+  int ne = 0, first = n, bj = kIntMax;
+  float bs = -INFINITY;
+  for (int e = tid, j; (j = own(e)) < n; e += kThreads) {
+    const int v = L.vstat[j];
+    const float dj = dcur[j];
+    const bool can_up = v == AT_LOWER || v == FREE;
+    const bool can_dn = v == AT_UPPER || v == FREE;
+    const bool elig = (can_up && dj < -p.opt_tol) || (can_dn && dj > p.opt_tol);
+    const float g = p1 ? 1.f : L.wts[j];
+    const float score = elig ? dj * dj / max_nan(g, p.devex_floor) : -INFINITY;
+    L.sc[j] = score;
+    ne += elig;
+    if (elig && j < first) first = j;
+    if (better(score, j, bs, bj)) { bs = score; bj = j; }
+  }
+  const int nelig_b = block_sum_int(ne, sm);
+  const int first_b = block_min_int(first, sm);
+  const int nlist = min(bland ? 1 : K, nelig_b);
+  float* lsc = L.lsc + (size_t)rank * K;
+  int* lid = L.lid + (size_t)rank * K;
+  if (own(kThreads) >= n) {
+    // at most one column a thread, on threads 0..ncols-1 (own is
+    // increasing): each eligible column's place in the list is the count of
+    // the block's columns that beat it
+    int ncols = 0;
+    for (int t = 0; t < kThreads / kWarps; ++t)
+      ncols += min(kWarps, max(0, n - (t * size + rank) * kWarps));
+    float* ss = sm.slab.merge.s;
+    int* sj = sm.slab.merge.j;
+    ss[tid] = bs;
+    sj[tid] = bj;
+    __syncthreads();
+    if (bs != -INFINITY) {  // an eligible column
+      int place = 0;
+      for (int u = 0; u < ncols; ++u) place += better(ss[u], sj[u], bs, bj);
+      if (place < nlist) {
+        lsc[place] = bs;
+        lid[place] = bj;
+      }
+    }
+    __syncthreads();
+  } else {
+    // repeated argmax over the block's columns, lowest index first on ties
+    block_argmax_pair(bs, bj, sm);
+    for (int k = 0; k < nlist; ++k) {
+      if (k > 0) {
+        bs = -INFINITY;
+        bj = kIntMax;
+        for (int e = tid, j; (j = own(e)) < n; e += kThreads)
+          if (better(L.sc[j], j, bs, bj)) { bs = L.sc[j]; bj = j; }
+        block_argmax_pair(bs, bj, sm);
+      }
+      if (tid == 0) {
+        lsc[k] = bs;
+        lid[k] = bj;
+        L.sc[bj] = -INFINITY;
+      }
+      __syncthreads();
+    }
+  }
+  if (tid == 0) {
+    L.part[3 * rank] = nlist;
+    L.part[3 * rank + 1] = nelig_b;
+    L.part[3 * rank + 2] = first_b;
+  }
+  K2_MARK(3);
+  grid_sync(ctl, size);
+  K2_MARK(4);
+
+  if (tid < 32) {  // the merge, on warp 0
+    const int lane = tid;
+    int nelig = 0, q_b = n;
+    for (int r = lane; r < size; r += 32) {
+      nelig += L.part[3 * r + 1];
+      q_b = min(q_b, L.part[3 * r + 2]);
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      nelig += __shfl_xor_sync(kFull, nelig, o);
+      q_b = min(q_b, __shfl_xor_sync(kFull, q_b, o));
+    }
+    const int ncand = bland ? min(1, nelig) : min(K, nelig);
+    auto& mg = sm.slab.merge;
+    auto load = [&](int r) {  // the head of block r's list at mg.pos[r]
+      const bool has = mg.pos[r] < L.part[3 * r];
+      const size_t e = (size_t)r * K + mg.pos[r];
+      mg.hs[r] = has ? L.lsc[e] : -INFINITY;
+      mg.hj[r] = has ? L.lid[e] : kIntMax;
+    };
+    // the lane's best head (v, vj), of block vr's list: a column index is
+    // in one list, so (v, vj) names its lane
+    float v = -INFINITY;
+    int vj = kIntMax, vr = -1;
+    auto best_head = [&]() {
+      v = -INFINITY;
+      vj = kIntMax;
+      vr = -1;
+      for (int r = lane; r < size; r += 32)
+        if (better(mg.hs[r], mg.hj[r], v, vj)) { v = mg.hs[r]; vj = mg.hj[r]; vr = r; }
+    };
+    for (int r = lane; r < size; r += 32) {
+      mg.pos[r] = 0;
+      load(r);
+    }
+    best_head();
+    float best0 = -INFINITY;
+    for (int k = 0; k < ncand; ++k) {
+      float wv = v;
+      int wj = vj;
+      for (int o = 16; o > 0; o >>= 1) {
+        const float ov = __shfl_xor_sync(kFull, wv, o);
+        const int oj = __shfl_xor_sync(kFull, wj, o);
+        if (better(ov, oj, wv, wj)) { wv = ov; wj = oj; }
+      }
+      if (k == 0) best0 = wv;
+      if (lane == 0) sm.cand_ids[k] = bland ? q_b : wj;
+      if (vr >= 0 && vj == wj) {  // the winner's list moves on
+        ++mg.pos[vr];
+        load(vr);
+        best_head();
+      }
+    }
+    if (lane == 0) {
+      sm.merged_i[0] = nelig;
+      sm.merged_i[1] = ncand;
+      sm.merged_f = best0;
+    }
+  }
+  __syncthreads();
+  K2_MARK(5);
+
+  // W[k, i] = (B^-1 a_k)[i]: a warp takes a row of B^-1 and a group of eight
+  // candidates, lanes striding the row
+  const int ncand = sm.merged_i[1];
+  const int lane = tid & 31, groups = (ncand + 7) / 8;
+  for (int it = rank * kWarps + (tid >> 5); it < m * groups; it += size * kWarps) {
+    const int i = it / groups, k0 = it % groups * 8;
+    const int kn = min(8, ncand - k0);
+    const float* brow = L.Binv + (size_t)i * m;
+    const float* arow[8];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      arow[kk] = L.AT + (size_t)sm.cand_ids[k0 + (kk < kn ? kk : 0)] * m;
+    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int j = lane; j < m; j += 32) {
+      const float bv = brow[j];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        if (kk < kn) acc[kk] = fmaf(arow[kk][j], bv, acc[kk]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      float a = acc[kk];
+      for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(kFull, a, o);
+      if (lane == 0 && kk < kn) L.W[(size_t)(k0 + kk) * m + i] = a;
+    }
+  }
+  K2_MARK(6);
+  Priced out;
+  out.nelig = sm.merged_i[0];
+  out.ncand = ncand;
+  out.best0 = sm.merged_f;
+  grid_sync(ctl, size);
+  return out;
+}
+
+// The fold of the eta ledger into B^-1, run by every block of the grid:
+// B^-1 -= etasᵀ P, with P the rows of the old B^-1 at the ledger's leaving
+// rows (gathered over the grid's threads before any block writes B^-1).
+// Each entry is one thread's chain fmaf over the ledger in order from 0, as
+// `gemm` sums it (its zero padding adds +0 to a sum that is never -0), four
+// entries in flight a thread.
+__device__ __forceinline__ void fold(const Lp& L, const Params& p, Smem& sm, Ctl* ctl,
+                                  int n_eta) {
+  const int m = p.m, rank = blockIdx.x, size = gridDim.x;
+  const size_t mm = (size_t)m * m;
+  const size_t gtid = (size_t)rank * kThreads + threadIdx.x, threads = (size_t)size * kThreads;
+  for (size_t e = gtid; e < (size_t)n_eta * m; e += threads)
+    L.P[e] = L.Binv[(size_t)L.eta_rs[e / m] * m + e % m];
+  K2_MARK(0);
+  grid_sync(ctl, size);
+  K2_MARK(1);
+  for (size_t e0 = gtid; e0 < mm; e0 += 4 * threads) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const size_t e = e0 + u * threads;
+      if (e >= mm) continue;
+      const int i = (int)(e / m), j = (int)(e % m);
+      for (int k = 0; k < n_eta; ++k)
+        acc[u] = fmaf(L.etas[(size_t)k * m + i], L.P[(size_t)k * m + j], acc[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const size_t e = e0 + u * threads;
+      if (e < mm) L.Binv[e] = L.Binv[e] - acc[u];
+    }
+  }
+  K2_MARK(2);
+  grid_sync(ctl, size);
 }
 
 // Phase-1 long step: walk the convex piecewise-linear phase-1 objective along
@@ -497,16 +887,27 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
   L.wts = L.d1 + n;
   L.sc = L.wts + n;
   L.xn = L.sc + n;
-  Ctl* ctl = reinterpret_cast<Ctl*>(L.xn + n);
-  if (blockIdx.x != 0) {  // a worker: its share of each refresh or recompute
-    worker_loop(ctl, sm.cmd, 1000, [&](int cmd) {  // its phases are long: poll each µs
-      if (cmd == (int)kRefresh) refresh(L, p, sm, ctl);
+  L.lsc = L.xn + n;
+  L.lid = reinterpret_cast<int*>(L.lsc + (size_t)kMaxGrid * K);
+  L.eta_rs = L.lid + (size_t)kMaxGrid * K;
+  L.part = L.eta_rs + K;
+  Ctl* ctl = reinterpret_cast<Ctl*>(L.part + 3 * kMaxGrid);
+  if (blockIdx.x != 0) {  // a worker: its share of each phase the leader posts
+    worker_loop(ctl, sm.cmd, 250, [&](int cmd) {
+      const unsigned op = (unsigned)cmd & ((1u << kCmdBits) - 1), arg = (unsigned)cmd >> kCmdBits;
+      if (op == kPrice) price(L, p, sm, ctl, arg);
+      else if (op == kFold) fold(L, p, sm, ctl, (int)arg);
+      else if (op == kRefresh) refresh(L, p, sm, ctl);
       else recompute_vectors(L, p, sm, ctl);
     });
     return;
   }
   // block 0, the leader: the whole loop; it posts the grid phases
   unsigned epoch = 0;
+#ifdef K2_CLOCKS
+  long long clk[kParts] = {};
+  long long clk_last = clock64();
+#endif
 
   // ---- start: warm state handed in, or the slack basis with B^-1 = I -------
   if (p.warm) {
@@ -544,6 +945,9 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
   int fresh = p.warm ? 0 : 1;
   int n_major = 0, n_refresh = 0;
   float best_inf = INFINITY, tell = 0.f;
+#ifdef K2_CLOCKS
+  clk_last = clock64();  // the start is no part of a major
+#endif
 
   while (status == RUNNING && niter < p.max_iter) {
     ++n_major;
@@ -559,10 +963,12 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
         (phase == 1 && feasible_pre) || force == 1 || sref >= p.refactor_period;
     if (do_refresh) {
       ++n_refresh;
+      K2_TICK(C_OTHER);
       post(ctl, epoch, kRefresh, gridDim.x);
       tell = refresh(L, p, sm, ctl);
       sref = 0;
       fresh = 1;
+      K2_TICK(C_REFRESH);
     }
     const bool diverged = do_refresh && tell > 0.5f;
     if (do_refresh) {
@@ -579,66 +985,18 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
     }
     const bool p1 = phase == 1;
 
-    // ---- major pricing: one pass over Aᵀ
-    if (p1) {  // d1 = -Aᵀ (sigma B^-1), zero on basic columns
-      for (int i = tid; i < m; i += kThreads)
-        L.grow[i] = sigma_of(L.xB[i], L.loB[i], L.hiB[i], ftol);
-      __syncthreads();
-      colsums(L.grow, L.Binv, m, m, [&](int k, float acc) { L.y[k] = acc; });
-      __syncthreads();
-      matvec(L.AT, L.y, n, m, [&](int j, float acc) {
-        L.d1[j] = L.vstat[j] == BASIC ? 0.f : -acc;
-      });
-      __syncthreads();
-    } else if (!do_refresh) {  // a refresh in this major already computed d
-      colsums(L.cB, L.Binv, m, m, [&](int k, float acc) { L.y[k] = acc; });
-      __syncthreads();
-      matvec(L.AT, L.y, n, m, [&](int j, float acc) {
-        L.d[j] = L.vstat[j] == BASIC ? 0.f : L.c[j] - acc;
-      });
-      __syncthreads();
-    }
-    const float* dcur = p1 ? L.d1 : L.d;
+    // ---- major pricing over the grid: the candidates and their W
     const bool bland = noimp >= p.bland_after;
-    int ne = 0, first = n, bj = kIntMax;
-    float bs = -INFINITY;
-    for (int j = tid; j < n; j += kThreads) {
-      const int v = L.vstat[j];
-      const float dj = dcur[j];
-      const bool can_up = v == AT_LOWER || v == FREE;
-      const bool can_dn = v == AT_UPPER || v == FREE;
-      const bool elig = (can_up && dj < -p.opt_tol) || (can_dn && dj > p.opt_tol);
-      const float g = p1 ? 1.f : L.wts[j];
-      const float score = elig ? dj * dj / max_nan(g, p.devex_floor) : -INFINITY;
-      L.sc[j] = score;
-      ne += elig;
-      if (elig && j < first) first = j;
-      if (better(score, j, bs, bj)) { bs = score; bj = j; }
-    }
-    const int nelig = block_sum_int(ne, sm);
-    const int q_b = block_min_int(first, sm);
-    block_argmax_pair(bs, bj, sm);
-    const float best0 = bs;  // max(score0), NaN-propagating
-    const bool found_any = nelig > 0;
-
-    // ---- candidates: the top minor_k scores by repeated argmax (lowest
-    // index first on ties); under Bland only the lowest eligible index
-    const int ncand = bland ? min(1, nelig) : min(K, nelig);
-    int qk = bland ? q_b : bj;
-    for (int k = 0; k < ncand; ++k) {
-      if (k > 0) {
-        float v = -INFINITY;
-        int vj = kIntMax;
-        for (int j = tid; j < n; j += kThreads)
-          if (better(L.sc[j], j, v, vj)) { v = L.sc[j]; vj = j; }
-        qk = block_argmax(v, vj, sm);
-      }
-      if (tid == 0) {
-        sm.cand_ids[k] = qk;
-        L.sc[qk] = -INFINITY;
-      }
-      __syncthreads();
-    }
+    const unsigned flags =
+        (p1 ? kP1 : 0u) | (p1 || !do_refresh ? kDense : 0u) | (bland ? kBland : 0u);
+    K2_TICK(C_OTHER);
+    post(ctl, epoch, kPrice | flags << kCmdBits, gridDim.x);
+    const Priced pr = price(L, p, sm, ctl, flags);
+    K2_SPANS(C_PRICE_Y, 7);
+    const float* dcur = p1 ? L.d1 : L.d;
+    const float best0 = pr.best0;  // max(score0), NaN-propagating
+    const bool found_any = pr.nelig > 0;
+    const int ncand = pr.ncand;
     for (int k = tid; k < K; k += kThreads) {
       const bool valid = k < ncand;
       const int q = valid ? sm.cand_ids[k] : 0;
@@ -648,36 +1006,7 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
       sm.vstat_cand[k] = valid ? L.vstat[q] : FIXED;
     }
     __syncthreads();
-
-    // ---- candidate tableau block W[k, i] = (B^-1 a_k)[i] = Binv[i, :] . Aᵀ[q_k, :]
-    // one warp per row of B^-1, eight candidates per pass over the row
-    {
-      const int lane = tid & 31;
-      for (int i = tid >> 5; i < m; i += kWarps) {
-        const float* brow = L.Binv + (size_t)i * m;
-        for (int k0 = 0; k0 < ncand; k0 += 8) {
-          const int kn = min(8, ncand - k0);
-          const float* arow[8];
-#pragma unroll
-          for (int kk = 0; kk < 8; ++kk)
-            arow[kk] = L.AT + (size_t)sm.cand_ids[k0 + (kk < kn ? kk : 0)] * m;
-          float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-          for (int j = lane; j < m; j += 32) {
-            const float bv = brow[j];
-#pragma unroll
-            for (int kk = 0; kk < 8; ++kk)
-              if (kk < kn) acc[kk] = fmaf(arow[kk][j], bv, acc[kk]);
-          }
-#pragma unroll
-          for (int kk = 0; kk < 8; ++kk) {
-            float a = acc[kk];
-            for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(kFull, a, o);
-            if (lane == 0 && kk < kn) L.W[(size_t)(k0 + kk) * m + i] = a;
-          }
-        }
-      }
-    }
-    __syncthreads();
+    K2_TICK(C_TABLEAU_SYNC);
 
     // ---- minor pivots on the candidates
     int n_eta = 0;
@@ -862,7 +1191,7 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
           L.loB[r] = lo_q;
           L.hiB[r] = hi_q;
           L.cB[r] = c_q;
-          sm.eta_rs[n_eta] = r;
+          L.eta_rs[n_eta] = r;
         }
         __syncthreads();
       } else if (do_flip) {
@@ -897,26 +1226,14 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
       if (!found || unbounded || sref >= p.refactor_period || bland) stop = true;
     }
 
-    // ---- fold the ledger into B^-1: B^-1 -= etasᵀ P, with P the rows of the
-    // old B^-1 at the pivot rows
+    // ---- fold the ledger into B^-1 over the grid
+    K2_TICK(C_MINORS);
     if (n_eta > 0) {
-      for (size_t e = tid; e < (size_t)n_eta * m; e += kThreads)
-        L.P[e] = L.Binv[(size_t)sm.eta_rs[e / m] * m + e % m];
-      __syncthreads();
-      gemm<true, false>(L.etas, m, L.P, m, m, m, n_eta,
-                        [&](int i0, int j0, Patch& acc) {
-                          const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-                          for (int a = 0; a < kPR; ++a)
-                            for (int cc = 0; cc < kPC; ++cc) {
-                              const int gi = i0 + ty * kPR + a, gj = j0 + tx * kPC + cc;
-                              if (gi >= m || gj >= m) continue;
-                              const size_t e = (size_t)gi * m + gj;
-                              L.Binv[e] = L.Binv[e] - acc[a][cc];
-                            }
-                        },
-                        sm);
-      __syncthreads();
+      post(ctl, epoch, kFold | (unsigned)n_eta << kCmdBits, gridDim.x);
+      fold(L, p, sm, ctl, n_eta);
+      K2_SPANS(C_FOLD_GATHER, 3);
     }
+    K2_TICK(C_FOLD_SYNC2);
 
     // ---- phase-1 progress accounting (the noimp reset authority)
     float part = 0.f;
@@ -958,6 +1275,10 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
     L.mon[4] = __float_as_int(obj);
     L.mon[5] = n_major;
     L.mon[6] = n_refresh;
+#ifdef K2_CLOCKS
+    for (int c = 0; c < kParts; ++c) atomicAdd(&g_clocks[c], (unsigned long long)clk[c]);
+    atomicAdd(&g_clocks[kParts], (unsigned long long)n_major);
+#endif
   }
 }
 
@@ -967,11 +1288,14 @@ extern "C" {
 
 // Floats of global scratch: three m x m (the gathered Bᵀ and two Newton
 // temporaries), three minor_k x m (W, the eta ledger, the fold's P), nine
-// m-vectors and five n-vectors, then the grid's control block (its command
-// word, epoch and barrier, and one telltale for each of up to kMaxGrid
-// blocks).
+// m-vectors and five n-vectors; the pricing's lists, a score and a column
+// for each of minor_k pairs of each of up to kMaxGrid blocks, and three ints
+// a block; the ledger's minor_k leaving rows; then the grid's control block
+// (its command word, epoch and barrier, and one telltale for each of up to
+// kMaxGrid blocks).
 size_t streaming_simplex_workspace_floats(int m, int n, int minor_k) {
   return 3 * (size_t)m * m + 3 * (size_t)minor_k * m + 9 * (size_t)m + 5 * (size_t)n +
+         (2 * (size_t)kMaxGrid + 1) * minor_k + 3 * (size_t)kMaxGrid +
          sizeof(Ctl) / sizeof(float);
 }
 
@@ -1048,5 +1372,17 @@ int streaming_simplex_launch(const float* AT, const float* b, const float* c,
 const char* streaming_simplex_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef K2_CLOCKS
+// Copy the leader's cycle sums (kParts + 1 values: C_REFRESH .. C_OTHER, then
+// the majors they cover) into `host` and zero them.  Synchronises.
+int streaming_simplex_clocks(unsigned long long* host) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(host, g_clocks, sizeof(g_clocks));
+  const unsigned long long zero[kParts + 1] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_clocks, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif
 
 }  // extern "C"

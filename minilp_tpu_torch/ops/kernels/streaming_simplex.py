@@ -29,9 +29,10 @@ Three layers, as for K1:
   `launches`; on a CPU tensor it runs `stream_plain`.  Nothing else selects
   between the two, and nothing falls back: a failed build or launch raises.
   The kernel is one cooperative grid (`k2_grid_blocks`: one block per SM
-  at Netlib scale): block 0 runs the simplex loop and the others join its
-  Newton refresh and vector recompute, with results bit-identical to one
-  block's.
+  at Netlib scale): block 0 runs the simplex loop and its minors, and the
+  others join its Newton refresh and vector recompute, each major's
+  pricing, candidate merge and tableau block W, and the fold of the eta
+  ledger, with results bit-identical to one block's.
 * `stream_plain` — the kernel's plain torch version (any device), a
   transcription of the TPU kernel's loop.  The CPU tests hold it against the
   Pallas kernel in interpret mode; `chip_smoke.py` holds the CUDA kernel
@@ -159,8 +160,12 @@ _I = ctypes.c_int
 _P = ctypes.c_void_p
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("streaming_simplex").lib
+def _library(defines: tuple = ()) -> ctypes.CDLL:
+    return _bind(build.load("streaming_simplex", defines).lib)
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a K2 library."""
     # every pointer and the stream as c_void_p: an undeclared argument
     # would pass as a 32-bit int and cut the pointer
     lib.streaming_simplex_workspace_floats.argtypes = [_I, _I, _I]
@@ -268,8 +273,16 @@ def stream_kernel_call(
         return stream_plain(AT, b, c, lo, hi, warm, **kw)
     if AT.device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA (kernel) or CPU (plain), not {AT.device}")
+    return _launch(_library(), AT, b, c, lo, hi, warm, blocks=blocks, **kw)
+
+
+def _launch(lib, AT, b, c, lo, hi, warm=None, *, blocks=None, slack0, max_iter,
+            refactor_period, newton_sweeps, feas_tol, opt_tol, pivot_tol, bland_after,
+            devex_floor, devex_reset, minor_k, regress_tol, se_weights, minor_decay,
+            xb_refine, long_step) -> StreamOut:
+    """One launch of `lib`'s kernel (the wrapper's, or a diagnostic build's)
+    on checked CUDA inputs; counted in `launches`."""
     n, m = AT.shape
-    lib = _library()
     dev = AT.device
     if blocks is None:
         blocks = default_blocks(dev, m, n)

@@ -259,13 +259,36 @@ def _k2_bits(out):
     return [t.view(torch.int32).reshape(-1).cpu() for t in out]
 
 
-@pytest.mark.parametrize("case", ["cold", "warm", "long_step"])
+#: test_k2_wide_matches_one_block's cases: (netlib_shaped_problem's shape and
+#: seed, `prepare_launch` options, blocks of the wide launch: None for
+#: `default_blocks`, dict(extra=e) for the default plus e blocks that get no
+#: row of Aᵀ in pricing, or dict(blocks=g) for g blocks)
+K2_WIDE_CASES = {
+    "cold": ((70, 150, 0.08, 2), {}, None),
+    "warm": ((70, 150, 0.08, 2), {}, None),
+    "long_step": ((70, 150, 0.08, 2), dict(long_step_min_m=0), None),
+    # Bland from the first major: one candidate, the lowest eligible column
+    "bland": ((70, 150, 0.08, 2), dict(bland_after=0), None),
+    "minor_k_1": ((70, 150, 0.08, 2), dict(minor_k=1), None),
+    "minor_k_128": ((70, 150, 0.08, 2), dict(minor_k=128), None),
+    # 64 nonbasic columns at most: always fewer eligible than minor_k
+    "few_eligible": ((60, 60, 0.1, 2), dict(minor_k=128), None),
+    "idle_blocks": ((70, 150, 0.08, 2), {}, dict(extra=8)),
+    # more than one column a thread in every block: each block builds its
+    # list by repeated argmax, and the merge joins two such lists
+    "many_columns": ((100, 1200, 0.03, 2), {}, dict(blocks=2)),
+}
+
+
+@pytest.mark.parametrize("case", list(K2_WIDE_CASES))
 def test_k2_wide_matches_one_block(cuda, case):
-    """K2 on its default cooperative grid and on one block: basis, vstat,
-    the bits of B⁻¹ and the monitor are equal bit for bit."""
-    can = canonicalize(presolve_problem(netlib_shaped_problem(70, 150, 0.08, seed=2))[0])
+    """K2 on its default cooperative grid (or a wider one) and on one block:
+    basis, vstat, the bits of B⁻¹ and the monitor are equal bit for bit."""
+    shape, over, wide_blocks = K2_WIDE_CASES[case]
+    can = canonicalize(presolve_problem(netlib_shaped_problem(*shape[:3], seed=shape[3]))[0])
     options = dict(device=cuda, slack0=can.nv, refactor_period=16, max_iter=4000,
-                   long_step_min_m=0 if case == "long_step" else 2048)
+                   long_step_min_m=2048)
+    options.update(over)
     hi = can.hi
     if case == "warm":
         cold = ss.solve_streaming(can.A, can.b, can.c, can.lo, can.hi, **options)
@@ -279,12 +302,22 @@ def test_k2_wide_matches_one_block(cuda, case):
     m, n = launch.A.shape
     blocks = ss.default_blocks(cuda, m, n)
     assert blocks > 1
+    if wide_blocks and "extra" in wide_blocks:
+        assert blocks == -(-n // 16)  # a warp a row of Aᵀ: the extra blocks get none
+        blocks += wide_blocks["extra"]
+    elif wide_blocks:
+        blocks = wide_blocks["blocks"]
+        # block r's columns pass 512 (a warp a row, 32 rows a pass) when
+        # ((32 blocks + r) 16) < n, for every r < blocks
+        assert n > 16 * (33 * blocks - 1)
     before = ss.launches
     wide, one = (ss.stream_kernel_call(*launch.args, launch.warm, blocks=g, **launch.kw)
-                 for g in (None, 1))
+                 for g in (blocks, 1))
     torch.cuda.synchronize()
     assert ss.launches == before + 2
     assert int(wide.monitor[1]) > 0 and int(wide.monitor[6]) > 0  # pivots, refreshes
+    if case == "bland":  # a Bland major takes at most one pivot
+        assert int(wide.monitor[5]) >= int(wide.monitor[1])
     for name, a, b in zip(wide._fields, _k2_bits(wide), _k2_bits(one)):
         diff = torch.nonzero(a != b)
         assert diff.numel() == 0, f"{name} differs first at flat index {int(diff[0])}"
