@@ -144,9 +144,24 @@ failure (exit code 1; no result line is printed then):
    the collectives a pivot and their share of the wall; two ranks share
    one card, so none of it is a scaling figure.
 
+9. The bench as a user runs it: `python3 -m minilp_tpu_torch.bench` in a
+   subprocess under a time limit, which prints bench.py's one JSON line
+   from the port (the batched line through K3, the single-LP lines and
+   their chains of cuts through K1, 25fv47 and K2's pivot rate through K2,
+   the host and K1-warm routing lines, the maros-r7 shape through the
+   crossover, the wall-bounded PDHG line).  The line is logged whole.
+   Required: 4096 of 4096 LPs optimal and verified, within 1e-6 of HiGHS;
+   both `single_lp` lines certified with pivots and at least one node; the
+   25fv47 line certified; the pivot-rate line optimal with phase 4b's
+   pivots; both routes at least one node; the maros line certified within
+   1e-9 of the reference's objective; the PDHG line's KKT and gap finite,
+   and `over_budget_s` present; the card in `device`; and K1, K2 and K3
+   launched during the run (its `launches`).
+
 It prints the kernel table as one JSON line (each kernel's launches on its
 main paths, by path in `launches_by_path`: K1's and K2's cold solves of
-phases 4 and 4b and warm re-solves of phase 6, K3's batched path; its time
+phases 4 and 4b and warm re-solves of phase 6, K3's batched path, the
+bench's launches of each; its time
 and its plain version's at the stated shape, and the bound of that run:
 the larger of its bytes over the card's memory rate and its floating-point
 operations, counted from the run's pivots, over the f32 peak), the card's
@@ -206,6 +221,9 @@ MAROS_OBJ = -4686.208519614669
 #: engine="pdhg" at 1e-6 as tests/test_large.py runs it (`PDHG`)
 PDHG_KW = dict(engine="pdhg", feas_tol=1e-6, pdhg_max_iter=600_000)
 PDHG_WALL_S = 60.0  # phase 7(c)'s wall bound
+#: phase 9: the bench as a user runs it, and its time limit
+BENCH_CMD = (sys.executable, "-m", "minilp_tpu_torch.bench")
+BENCH_TIMEOUT_S = 480.0
 
 
 def log(*args) -> None:
@@ -1639,6 +1657,58 @@ def sharded_main_path(torch, card, shape=SINGLE_LP["256x1024"], batch=SHARDED_BA
         log(f"  {tag}: {dry['result']}")
 
 
+def check_bench_line(line, card, k2_pivots, n_lps=4 * BATCH, maros_obj=MAROS_OBJ):
+    """Phase 9's checks of the bench's JSON line (module docstring); raises
+    with every check that failed."""
+    finite = lambda v: isinstance(v, (int, float)) and math.isfinite(v)
+    rate, maros, pd = (line["streaming_pivot_rate"], line["netlib_shape_maros_r7"],
+                       line["pdhg_maros_shape"])
+    checks = {
+        f"{n_lps} LPs optimal and verified": line["n_optimal"] == line["n_verified"] == n_lps,
+        "within 1e-6 of HiGHS": line["max_rel_gap_vs_highs"] <= REL_HIGHS,
+        "single_lp certified, pivots, a node": all(
+            e["certified"] and e["cold_iters"] > 0 and e["resolve_nodes"] >= 1
+            for e in line["single_lp"].values()),
+        "25fv47 certified": line["netlib_shape_25fv47"]["certified"] is True,
+        f"pivot rate optimal at {k2_pivots} pivots": (rate["status_optimal"] is True
+                                                      and rate["pivots"] == k2_pivots),
+        "both routes a node": all(e["nodes"] >= 1 for e in line["incremental_routing"].values()),
+        "maros certified at the reference's objective": (
+            maros["certified"] is True
+            and abs(maros["objective"] - maros_obj) <= REL_REF * (1.0 + abs(maros_obj))),
+        "PDHG KKT and gap finite, over_budget_s": (
+            finite(pd["kkt_err"]) and finite(pd.get("rel_gap_vs_certified"))
+            and finite(pd.get("over_budget_s"))),
+        "the card named": line["device"] == card,
+        "K1, K2 and K3 launched": all(n > 0 for n in line["launches"].values()),
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"bench line: failed {failed}")
+
+
+def bench_main_path(card, k2_pivots, cmd=BENCH_CMD, timeout_s=BENCH_TIMEOUT_S, **expect):
+    """Phase 9: the bench (`cmd`) in a subprocess from the checkout's root,
+    killed at `timeout_s`; its one JSON line logged and checked
+    (`check_bench_line`, with `expect`).  Returns its kernels' launches."""
+    log(f"[9] the bench on the card: {' '.join(cmd[1:])}")
+    env = {k: v for k, v in os.environ.items() if k != "MINILP_TPU_LOG"}
+    t0 = time.perf_counter()
+    res = subprocess.run(list(cmd), cwd=HERE, env=env, capture_output=True, text=True,
+                         timeout=timeout_s)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"the bench exited {res.returncode}: {res.stderr[-4000:]}")
+    lines = res.stdout.splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"the bench printed {len(lines)} lines, not one: {res.stdout[-4000:]}")
+    log(f"  bench line ({wall:.1f} s): {lines[0]}")
+    line = json.loads(lines[0])
+    check_bench_line(line, card, k2_pivots, **expect)
+    log(f"  every check of the bench line held; launches {line['launches']}")
+    return line["launches"]
+
+
 def main() -> int:
     if not (HERE / "minilp_tpu_torch" / "__init__.py").is_file():
         print("chip_smoke.py: the minilp_tpu_torch package is not beside this "
@@ -1653,7 +1723,7 @@ def main() -> int:
 
 
 def phases(torch) -> int:
-    """Phases 1 to 8 (the module docstring)."""
+    """Phases 1 to 9 (the module docstring)."""
     t_start = time.perf_counter()
     sys.path.insert(0, str(HERE))
     import minilp_tpu_torch
@@ -1786,12 +1856,13 @@ def phases(torch) -> int:
               for tag, args in NETLIB.items()}
     want = {tag: highs_objective(make()) for tag, make in netlib.items()}
     ss.launches = 0  # counts from here on are the main path's
+    k2_pivots = {}
     for tag, make in netlib.items():
-        _walls, _stages, pivots = solve_main_path(
+        _walls, _stages, k2_pivots[tag] = solve_main_path(
             tag, make, want[tag], "cold_solve_streaming", rec_path,
             ref=OBJ_25FV47 if tag == "25fv47" else None)
-        if pivots != K2_COUNTS[tag][0]:
-            raise AssertionError(f"{tag}: K2 took {pivots} pivots, expected "
+        if k2_pivots[tag] != K2_COUNTS[tag][0]:
+            raise AssertionError(f"{tag}: K2 took {k2_pivots[tag]} pivots, expected "
                                  f"{K2_COUNTS[tag][0]}")
     k2_launches = ss.launches
     if k2_launches <= 0:
@@ -1828,6 +1899,9 @@ def phases(torch) -> int:
         raise AssertionError(f"the examples launched K1 and K2 {ex}")
     sharded_main_path(torch, card)
 
+    # ---- 9. the bench, as a user runs it -------------------------------------
+    bench = bench_main_path(card, k2_pivots["25fv47"])
+
     ms_k, ms_p = cmp_.times["single_lp_512x2048"]
     k1_bound = dense_simplex_bound(cmp_.niter["single_lp_512x2048"], 504, 2048)
     ms2_k, ms2_p = cmp2.times["25fv47"]
@@ -1836,11 +1910,13 @@ def phases(torch) -> int:
     ms3_k, ms3_p = cmp3.times[tag3]
     k3_bound = dense_simplex_bound(cmp3.niter[tag3], BATCH_M, BATCH_M + BATCH_NV)
     by_path = {"batched_simplex": {"cold": k1_launches, "incremental": warm["batched_simplex"],
-                                   "examples": ex["batched_simplex"]},
+                                   "examples": ex["batched_simplex"],
+                                   "bench": bench["batched_simplex"]},
                "streaming_simplex": {"cold": k2_launches,
                                      "incremental": warm["streaming_simplex"],
-                                     "examples": ex["streaming_simplex"]},
-               "packed_simplex": {"batched": k3_launches}}
+                                     "examples": ex["streaming_simplex"],
+                                     "bench": bench["streaming_simplex"]},
+               "packed_simplex": {"batched": k3_launches, "bench": bench["packed_simplex"]}}
     row = lambda name, tpu_line, cmp, ms, plain_ms, bnd: {
         "name": name, "route": "cuda", "source": f"minilp_tpu_torch/csrc/{name}.cu",
         "replaces": f"minilp_tpu/ops/kernels/{name}.py:{tpu_line}",

@@ -223,7 +223,8 @@ def _check_full_f32() -> None:
 BF16_MIN_ENTRIES = 1 << 22
 
 
-def _device_pdhg_stage(can, opts: SolverOptions, tol: float, *, device=None):
+def _device_pdhg_stage(can, opts: SolverOptions, tol: float, *, device=None,
+                       budget_s: Optional[float] = None):
     """f32 dense PDHG on the solve's CUDA device for the crossover.
 
     Chunk-launched (2 000 iterations, then about 10 s a launch); after every
@@ -236,7 +237,9 @@ def _device_pdhg_stage(can, opts: SolverOptions, tol: float, *, device=None):
     `tol` when a floor was hit — or None when the solve's device is the CPU
     (`device=None`) or the run produced nothing finite.  `device` runs the
     stage on that device whatever the options say (the tests run it on the
-    CPU).
+    CPU).  `budget_s` is a soft wall budget (the bench's PDHG line): no
+    chunk starts once it has passed, and an adapted chunk is cut to the
+    time left at the last chunk's rate (at least 500 iterations).
     """
     if device is None:
         dev = torch.device(opts.device)
@@ -263,7 +266,11 @@ def _device_pdhg_stage(can, opts: SolverOptions, tol: float, *, device=None):
     done = 0
     x = y = None
     err = np.inf
+    t_start = time.perf_counter()
+    out_of_budget = False
     for A_phase, phase_tol in phases:
+        if out_of_budget:
+            break
         chunk = FIRST_CHUNK
         n_launches = 0
         stalled = 0
@@ -277,6 +284,9 @@ def _device_pdhg_stage(can, opts: SolverOptions, tol: float, *, device=None):
                 status=torch.full_like(st.status, int(Status.MAX_ITER)),
             )
         while True:
+            if budget_s is not None and time.perf_counter() - t_start > budget_s:
+                out_of_budget = True
+                break
             cap = min(done + chunk, opts.pdhg_max_iter)
             t0 = time.perf_counter()
             st = pdhg.solve_pdhg(A_phase, *vecs, opts=p_opts, state0=st,
@@ -305,6 +315,9 @@ def _device_pdhg_stage(can, opts: SolverOptions, tol: float, *, device=None):
             if n_launches > 2:  # the reference's rule: adapt from the third
                 rate = max(done - prev_done, 1) / max(dt, 1e-3)
                 chunk = int(min(max(rate * 10.0, 500), 100_000))
+                if budget_s is not None:
+                    left = budget_s - (time.perf_counter() - t_start)
+                    chunk = int(max(min(chunk, rate * max(left, 0.5)), 500))
         if err <= tol or done >= opts.pdhg_max_iter:
             break
     if x is None or not np.isfinite(err):

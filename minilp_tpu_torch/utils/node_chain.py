@@ -9,6 +9,9 @@ re-solve per node:
   2. `fix_var` of the basic structural variable farthest above its lower
      bound, at the midpoint of that bound and its value, then `unfix_var`;
   3. one `add_gomory_cut` on the most fractional basic structural variable.
+With `edits=False` the chain stops after the cuts, as bench.py's does
+(`minilp_tpu_torch/bench.py`).  An edit that makes the LP infeasible is
+kept as a node (its outcome "Infeasible"); any other error propagates.
 Each node keeps its wall time (host clock around the edit, after `sync`),
 its stage timers (`utils/profiling.py`: `state_rebuild_s` is `ensure_binv`
 or a state rebuilt from a certified basis, `host_polish_s`, `certify_s`,
@@ -57,6 +60,7 @@ def _copy_problem(prob: "api.Problem") -> "api.Problem":
 
 
 def run_chain(sol: "api.Solution", *, cuts: int = 6, seed: int = 5, margin: float = 0.05,
+              edits: bool = True,
               log_path: Optional[pathlib.Path] = None,
               sync: Callable[[], None] = lambda: None) -> List[Node]:
     """The chain of nodes above, from the solved `sol`; returns its nodes.
@@ -83,7 +87,7 @@ def run_chain(sol: "api.Solution", *, cuts: int = 6, seed: int = 5, margin: floa
         t0 = time.perf_counter()
         try:
             out = call()
-        except api.Error as exc:
+        except api.Infeasible as exc:
             sync()
             nodes.append(Node(edit, type(exc).__name__, time.perf_counter() - t0,
                               None, None, None, events(), profiling.stages(),
@@ -111,6 +115,8 @@ def run_chain(sol: "api.Solution", *, cuts: int = 6, seed: int = 5, margin: floa
         if nxt is None:
             return nodes  # the cut made the node infeasible: the chain ends
         cur = nxt
+    if not edits:
+        return nodes
 
     can = cur._engine.can
     x = np.array([cur[api.Variable(j)] for j in range(nv)])
