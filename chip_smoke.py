@@ -9,8 +9,9 @@ nothing of JAX or of the JAX package.  Phases, each of which raises on
 failure (exit code 1; no result line is printed then):
 
 1. the card, its power limit, torch's CUDA version and `nvcc --version`;
-2. the build of every kernel from `csrc/` (K1, K2 and K3, one `nvcc` each,
-   started together), with what ptxas reports;
+2. the build of every kernel from `csrc/` (K1, K2, K3 and the f64
+   certificate, one `nvcc` each, started together), with what ptxas
+   reports;
 3. K1 against its plain torch version on the card, on the same inputs: a
    batch of 64 random 32×128 LPs, the two `single_lp` instances of
    `bench.py` canonicalized (padded (256, 1024) and (504, 2048)) cold, and
@@ -62,15 +63,35 @@ failure (exit code 1; no result line is printed then):
    and the pivots of the parent kernel (13974 and 11322).
    The route the port took before K2 (`use_streaming="never"`: the f64
    torch engine on the card) is timed once on the 25fv47 shape;
+5b. the batched path's f64 certificate (`csrc/certify_f64.cu`, which
+   replaces the host's numpy `_verify_f64`) against its plain torch version
+   on the card, on the same device inputs, and both against the host's
+   `_verify_f64`: on K3's rows for the bench's batch (seed 0, whose pivots
+   repeat 178961) and for phase 5's first batch (seed 1, lanes 293 and 471
+   unverified by all three), on K3's rows for one `mixed_lps(50)` bucket,
+   on K1's rows for `scenario_batch`'s 512 × (16×24), and on a crafted 16
+   lanes of seed 0 (lane 1 exactly singular, lane 2 MAX_ITER, lane 3 above
+   a cut bound).  Required: the same `verified` flags on every lane (on
+   the crafted batch the host's batched solve fails every lane, the kernel
+   and the plain version lane 1 alone, and the other lanes are the host's
+   answer without lane 1), obj and x within 1e-12 · max(1, |reference|),
+   the shared-memory layout equal to the "global" one bit for bit, two
+   kernel runs identical.  Logged: the kernel's ms (least of 3), the
+   global layout's, the plain version's, the library calls' (A·x_N,
+   `lu_factor_ex`, two `lu_solve`, Aᵀy) and the host's, beside the bound;
 5. the batched main path through K3, as `bench.py`'s batched line runs it:
    `solve_batches_pipelined` on a warm-up batch, then three repetitions
    over four fresh batches of 1024 LPs (m = 32, nv = 96, pack 8,
-   `structural_cols=96`), with the certified LPs per second (median and
-   spread), the device-only K3 time of one batch and the host stages.
-   Required: K3 launched, every lane certified, and a gap to HiGHS within
-   1e-6 relative on 64 sampled lanes.  Also `solve_batch_certified` (K1 in
-   batch mode) on one batch of 1024 and `solve_heterogeneous` on a mixed
-   list, each certified and checked against HiGHS on sampled LPs;
+   `structural_cols=96`), each certified on the card, with the certified
+   LPs per second (median and spread), the device-only K3 time of one
+   batch and every `batch_*` stage.  Required: K3 and the certificate
+   launched once a batch, every lane certified (after HiGHS), and a gap to
+   HiGHS within 1e-9 relative on 64 sampled lanes.  Also
+   `solve_batch_certified` (K1 in batch mode) on one batch of 1024 and
+   `solve_heterogeneous` on a mixed list (one certificate a bucket), each
+   certified and checked against HiGHS on sampled LPs.  The host's
+   `_verify_f64` (the single-LP routes' certificate) must not be called on
+   any of these batch entry points;
 6. the incremental main path (`Solution.add_constraint` / `fix_var` /
    `unfix_var` / `add_gomory_cut`), one node chain per case
    (`utils/node_chain.py`: bench.py's 6 `add_constraint` cuts, `fix_var`
@@ -123,7 +144,8 @@ failure (exit code 1; no result line is printed then):
    (against the brute force) and n = 16 (seed 0, against a Held–Karp
    dynamic program in numpy), the cold solve through K1 and the nodes on
    the incremental API; `examples/scenario_batch.py` at its default 512 ×
-   (16×24), every lane OPTIMAL after the f64 fallback; `examples/
+   (16×24), every lane OPTIMAL after the f64 fallback, its batch certified
+   by one launch of the certificate and never by the host; `examples/
    netlib_runner.py` on an MPS file of the 25fv47 shape named SHAPE_25FV47
    with `--expected` the reference's certified objective: exit code 0,
    `pass_1e-6`, certified, through K2.  K1's and K2's launches on these
@@ -155,16 +177,19 @@ failure (exit code 1; no result line is printed then):
    25fv47 line certified; the pivot-rate line optimal with phase 4b's
    pivots; both routes at least one node; the maros line certified within
    1e-9 of the reference's objective; the PDHG line's KKT and gap finite,
-   and `over_budget_s` present; the card in `device`; and K1, K2 and K3
-   launched during the run (its `launches`).
+   and `over_budget_s` present; the card in `device`; K1, K2, K3 and the
+   certificate launched during the run (its `launches`); and the batched
+   line's `batch_stages`, the device ones included.
 
 It prints the kernel table as one JSON line (each kernel's launches on its
 main paths, by path in `launches_by_path`: K1's and K2's cold solves of
-phases 4 and 4b and warm re-solves of phase 6, K3's batched path, the
-bench's launches of each; its time
-and its plain version's at the stated shape, and the bound of that run:
-the larger of its bytes over the card's memory rate and its floating-point
-operations, counted from the run's pivots, over the f32 peak), the card's
+phases 4 and 4b and warm re-solves of phase 6, K3's and the certificate's
+batched path, the certificate's launch on the examples' path, the bench's
+launches of each; its time and its plain version's at the stated shape,
+the library calls' for the certificate, and the bound of that run: the
+larger of its bytes over the card's memory rate and its floating-point
+operations, counted from the run's pivots, over the f32 peak, or the
+certificate's f64 operations over the FP64 tensor-core peak), the card's
 name and power limit as `nvidia-smi` gives them, and,
 last, `{"ok": true, "device": {...}}`.
 Without a CUDA device, or without the package beside it, it exits nonzero.
@@ -194,6 +219,10 @@ DEVICE = "cuda"
 BATCH, BATCH_M, BATCH_NV, PACK = 1024, 32, 96, 8  # bench.py's batched line
 F32_FLOPS = 67e12   # H100 SXM f32 rate outside the tensor cores (data sheet, 700 W)
 HBM_BYTES = 3.35e12  # H100 SXM memory rate, bytes/s (data sheet)
+#: H100 SXM FP64 tensor-core rate (data sheet, 700 W; 34 TFLOP/s outside the
+#: tensor cores): the certificate's least time takes the faster of the two
+F64_FLOPS = 67e12
+REL_CERT = 1e-12    # the certificate kernel vs its plain version and the host's
 KERNEL_KW = dict(refactor_period=32, feas_tol=1e-5, opt_tol=1e-6, pivot_tol=1e-6,
                  bland_after=200)
 # K3's pivots on phase 3c's cases at the full batch (PERF.md §6), which every
@@ -224,6 +253,11 @@ PDHG_WALL_S = 60.0  # phase 7(c)'s wall bound
 #: phase 9: the bench as a user runs it, and its time limit
 BENCH_CMD = (sys.executable, "-m", "minilp_tpu_torch.bench")
 BENCH_TIMEOUT_S = 480.0
+#: the kernels whose launches the bench's line counts, and the batched
+#: line's stages (`solve_batches_pipelined`) on a card
+BENCH_KERNELS = ("batched_simplex", "streaming_simplex", "packed_simplex", "certify_f64")
+BATCH_STAGES = ("batch_prep_s", "batch_wait_s", "batch_verify_s", "batch_verify_dev_s",
+                "batch_resolve_s", "batch_resolved", "batch_upload_dev_s", "batch_kernel_dev_s")
 
 
 def log(*args) -> None:
@@ -301,6 +335,37 @@ def dense_simplex_bound(niter, m, n, refactor_period=32):
                    + np.floor(niter / refactor_period) * (8 * m ** 3 + 4 * m * n)).sum())
     nbytes = niter.size * 4 * ((m * n + m + 3 * n) + (m + n + 2))
     return bound(flops, nbytes)
+
+
+def certify_bound(B, m, n):
+    """The certificate's bound on B lanes of m x n: the larger of its bytes
+    (A, b, c, lo, hi read once in f64, the basis, vstat and status in int32,
+    obj, verified and x written once) over the memory rate and its f64
+    operations (an LU, 2m³/3; two triangular solves each way, 4m²; A·x_N
+    and Aᵀy, 4mn) over `F64_FLOPS`."""
+    nbytes = B * (8 * (m * n + m + 3 * n) + 4 * (m + n + 1) + 8 + 1 + 8 * n)
+    flops = B * (2 * m ** 3 / 3 + 4 * m * m + 4 * m * n)
+    t_ops, t_bytes = flops / F64_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+@contextlib.contextmanager
+def host_checks_counted():
+    """Count the calls of the host's `_verify_f64` (the single-LP routes'
+    certificate) while the block runs: a list whose length is the count."""
+    from minilp_tpu_torch.ops.kernels import batched_simplex as bs
+
+    saved, calls = bs._verify_f64, []
+
+    def counted(*args):
+        calls.append(args[0].shape)
+        return saved(*args)
+
+    bs._verify_f64 = counted
+    try:
+        yield calls
+    finally:
+        bs._verify_f64 = saved
 
 
 def streaming_bound(m, n, majors, refreshes, minor_k=16):
@@ -670,6 +735,8 @@ class CompareK3:
 
     def run(self, tag, A, b, c, lo, hi, *, slack0, max_iter=2000, reps=1,
             paths_may_part=False):
+        from minilp_tpu_torch.ops.kernels.batched_simplex import verify_rows_f64
+
         torch, ps = self.torch, self.ps
         B, m, n = A.shape
         args = ps.upload_packed(A, b, c, lo, hi, pack=PACK, device=DEVICE)
@@ -685,7 +752,7 @@ class CompareK3:
         if not torch.equal(out_k, glob):
             raise AssertionError(f"{tag}: the {layout} and global layouts differ")
         out_p, ms_p = timed(torch, lambda: ps.packed_plain(*args, **kw), 1)
-        rk, rp = (ps.certify_rows(o.cpu().numpy(), A, b, c, lo, hi) for o in (out_k, out_p))
+        rk, rp = (verify_rows_f64(o.cpu().numpy(), A, b, c, lo, hi) for o in (out_k, out_p))
         if paths_may_part:
             err, parted = agree_where_paths_agree(tag, rk, rp)
             rel = float("nan")
@@ -732,9 +799,10 @@ def agree_where_paths_agree(tag, rk, rp):
     return float(err.max()), np.flatnonzero(~same).tolist()
 
 
-def highs_gaps(lanes, results):
+def highs_gaps(lanes, results, tol=REL_HIGHS):
     """Largest relative gap of certified objectives to scipy's HiGHS on the
-    given (A, b, c, lo, hi) lanes, each equality-form and minimized."""
+    given (A, b, c, lo, hi) lanes, each equality-form and minimized; raises
+    above `tol`."""
     from scipy.optimize import linprog
 
     worst = 0.0
@@ -745,7 +813,7 @@ def highs_gaps(lanes, results):
         if r.status != 0:
             raise RuntimeError(f"HiGHS failed: {r.message}")
         worst = max(worst, abs(got - r.fun) / (1.0 + abs(r.fun)))
-    if worst > REL_HIGHS:
+    if worst > tol:
         raise AssertionError(f"certified objectives {worst:.3e} from HiGHS")
     return worst
 
@@ -873,12 +941,180 @@ def compare_k3(torch, batch=BATCH):
     return cmp3
 
 
+def cert_close(got, ref, rel=REL_CERT):
+    """Elementwise: got within rel · max(1, |ref|) of ref, an equal infinity
+    or both NaN."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    same = (got == ref) | (np.isnan(got) & np.isnan(ref))
+    with np.errstate(invalid="ignore"):
+        return same | (np.abs(got - ref) <= rel * np.maximum(1.0, np.abs(ref)))
+
+
+def crafted_certificate_batch(lp, basis, vstat, status, x, nv):
+    """The first 16 lanes of a solved batch (`lp`, its basis, vstat, status
+    and the host's x; nv structural columns) with lane 1 exactly singular (a
+    basic column of A zeroed), lane 2's status MAX_ITER and lane 3's
+    largest basic structural above a cut upper bound."""
+    from minilp_tpu_torch.status import Status
+
+    A, b, c, lo, hi = (np.array(v[:16]) for v in lp)
+    basis, vstat, status = (np.array(v[:16]) for v in (basis, vstat, status))
+    A[1][:, basis[1, 3]] = 0.0
+    status[2] = int(Status.MAX_ITER)
+    j = max((int(k) for k in basis[3] if k < nv), key=lambda k: x[3, k])
+    hi[3, j] = 0.5 * x[3, j]
+    return (A, b, c, lo, hi), (basis, vstat, status)
+
+
+def compare_certify(torch, batch=BATCH):
+    """Phase 5b: the certificate kernel against `certify_plain` on the card,
+    on the same device inputs, and both against the host's `_verify_f64`
+    (module docstring); returns the kernel's figures at the bench's batch."""
+    from minilp_tpu_torch.ops.kernels import batched_simplex as bs
+    from minilp_tpu_torch.ops.kernels import certify
+    from minilp_tpu_torch.ops.kernels import packed_simplex as ps
+    from minilp_tpu_torch.parallel import scheduling
+    from minilp_tpu_torch.utils.synth import random_batch
+
+    log("[5b] the f64 certificate (CUDA) vs plain torch and the host's _verify_f64")
+
+    def rows_of(lp, slack0, kernel):
+        """(basis, vstat, status) of K3's or K1's launch on `lp`, on the
+        card, and the pivots."""
+        data = bs.upload(DEVICE, *lp)
+        if kernel == "K3":
+            out = ps.packed_kernel_call(*ps.packed_args(*data, pack=PACK), pack=PACK,
+                                        slack0=slack0, max_iter=2000, **KERNEL_KW)
+        else:
+            out = bs.megakernel_rows(*data, slack0=slack0, max_iter=2000, **KERNEL_KW)
+        B, m, n = data[0].shape
+        rows = out.reshape(B, m + n + 2)
+        return ([rows[:, :m].contiguous(), rows[:, m:m + n].contiguous(),
+                 rows[:, m + n].contiguous()], rows[:, -1].cpu().numpy())
+
+    def check(tag, lp, ints, source):
+        """The kernel (twice, and in the global layout), the plain version
+        and the host on one case; returns (figures, the host's x)."""
+        data = bs.upload(DEVICE, *lp)
+        B, m, n = data[0].shape
+        args = (*data, *ints)
+        first = certify.certify_kernel_call(*args)  # also loads the kernel
+        ms_k = min(timed(torch, lambda: certify.certify_kernel_call(*args))[1] for _ in range(3))
+        again = certify.certify_kernel_call(*args)
+        glob = certify.certify_kernel_call(*args, layout="global")
+        ms_g = min(timed(torch, lambda: certify.certify_kernel_call(*args, layout="global"))[1]
+                   for _ in range(3))
+        for name, other in (("a second run", again), ("the global layout", glob)):
+            if not all(torch.equal(u, v) for u, v in zip(first, other)):
+                raise AssertionError(f"{tag}: the certificate differs on {name}")
+        certify.certify_plain(*args)  # the first call of torch's batched LU loads it
+        plain, ms_p = timed(torch, lambda: certify.certify_plain(*args))
+        host_in = [np.asarray(v) for v in lp] + [v.cpu().numpy() for v in ints]
+        t0 = time.perf_counter()
+        oh, vh, xh = bs._verify_f64(*host_in)
+        ms_h = (time.perf_counter() - t0) * 1e3
+        (ok, vk, xk), (op, vp, xp) = [[t.cpu().numpy() for t in r] for r in (first, plain)]
+        if not ((vk == vp).all() and cert_close(ok, op).all() and cert_close(xk, xp).all()):
+            raise AssertionError(f"{tag}: the kernel and the plain version differ: verified on "
+                                 f"lanes {np.flatnonzero(vk != vp).tolist()}, or obj or x "
+                                 f"beyond {REL_CERT} relative")
+        x_host, keep = xh, slice(None)
+        if tag == "crafted":
+            # the host's batched solve fails every lane on lane 1's singular
+            # basis; the kernel and the plain version fail lane 1 alone (and
+            # lanes 2 and 3 on their edits), and the other lanes are the
+            # host's answer without lane 1
+            want = [True, False, False, False] + [True] * 12
+            if vh.any() or vk.tolist() != want:
+                raise AssertionError(f"crafted: verified kernel {vk.tolist()}, host "
+                                     f"{vh.tolist()}")
+            keep = np.arange(B) != 1
+            oh, vh, xh = bs._verify_f64(*(v[keep] for v in host_in))
+        if not ((vk[keep] == vh).all() and cert_close(ok[keep], oh).all()
+                and cert_close(xk[keep], xh).all()):
+            raise AssertionError(f"{tag}: the kernel and the host differ: verified on lanes "
+                                 f"{np.flatnonzero(vk[keep] != vh).tolist()}, or obj or x "
+                                 f"beyond {REL_CERT} relative")
+        err = max(float(np.abs(ok - op)[np.isfinite(op)].max(initial=0.0)),
+                  float(np.abs(xk - xp)[np.isfinite(xp)].max(initial=0.0)))
+        bnd = certify_bound(B, m, n)
+        layout = certify.pick_layout(m, n)
+        unver = np.flatnonzero(~first[1].cpu().numpy()).tolist()
+        log(f"  {tag} ({source}): B={B} m={m} n={n} layout={layout} (smem "
+            f"{certify.smem_bytes(m, n, layout)} B) bit-identical to global and on a second "
+            f"run; verified={B - len(unver)}/{B} unverified={unver[:8]}; the same flags as "
+            f"plain and host; max_abs_err vs plain={err:.3e}; kernel_ms={ms_k:.4f} "
+            f"global_ms={ms_g:.4f} plain_ms={ms_p:.3f} host_ms={ms_h:.3f} "
+            f"bound_ms={bnd[0]:.5f} ({bnd[1]})")
+        return dict(ms=ms_k, plain_ms=ms_p, host_ms=ms_h, global_ms=ms_g, bound=bnd,
+                    max_abs_err=err, unverified=unver), x_host
+
+    bucket = scheduling.bucket_lps(mixed_lps(50), pack=PACK)[1][0]
+    seed0 = random_batch(0, batch, BATCH_M, BATCH_NV)
+    cases = {f"bench_seed0_{batch}x32x128": (seed0, BATCH_NV, "K3"),
+             f"phase5_seed1_{batch}x32x128": (random_batch(1, batch, BATCH_M, BATCH_NV),
+                                             BATCH_NV, "K3"),
+             f"bucket_{bucket.M}x{bucket.NV + bucket.M}": (bucket.batch, bucket.NV, "K3"),
+             f"scenario_{SCENARIOS[0]}x{SCENARIOS[1]}x{sum(SCENARIOS[1:])}": (
+                 random_batch(0, *SCENARIOS), SCENARIOS[2], "K1")}
+    figures = {}
+    for tag, (lp, slack0, kernel) in cases.items():
+        ints, niter = rows_of(lp, slack0, kernel)
+        figures[tag], x_host = check(tag, lp, ints, f"{kernel}'s rows")
+        if lp is seed0:
+            if batch == BATCH and int(niter.sum()) != K3_PIVOTS[f"batch{BATCH}_32x128"]:
+                raise AssertionError(f"seed 0: K3 took {int(niter.sum())} pivots")
+            lib_ms = library_certificate_ms(torch, *bs.upload(DEVICE, *lp), *ints)
+            figures[tag]["library_ms"] = lib_ms
+            log(f"  {tag}: library calls (A·x_N, lu_factor_ex, two lu_solve, Aᵀy) "
+                f"ms={lib_ms:.4f}")
+            crafted = crafted_certificate_batch(lp, *(v.cpu().numpy() for v in ints),
+                                                x_host, BATCH_NV)
+    lp, ints = crafted
+    check("crafted", lp, [torch.tensor(v, device=DEVICE) for v in ints],
+          "seed 0's first 16 lanes: lane 1 singular, 2 MAX_ITER, 3 above a bound")
+    if batch == BATCH and figures[f"phase5_seed1_{batch}x32x128"]["unverified"] != \
+            K3_UNVERIFIED_SEED1:
+        raise AssertionError(f"seed 1: unverified lanes, expected {K3_UNVERIFIED_SEED1}")
+    out = dict(figures[f"bench_seed0_{batch}x32x128"])
+    out["max_abs_err"] = max(f["max_abs_err"] for f in figures.values())
+    return out
+
+
+def library_certificate_ms(torch, A, b, c, lo, hi, basis, vstat, status):
+    """The least of 3 CUDA-event times of PyTorch's own calls for the
+    certificate's linear algebra on the same inputs: A·x_N, one batched
+    `lu_factor_ex`, two `lu_solve` (B x_B = rhs, Bᵀy = c_B) and Aᵀy (the
+    gathers and the checks are not counted)."""
+    from minilp_tpu_torch.status import VarStat
+
+    B, m, n = A.shape
+    idx = basis.long()
+    Bmat = torch.gather(A, 2, idx[:, None, :].expand(B, m, m)).contiguous()
+    at_lo = (vstat == int(VarStat.AT_LOWER)) | (vstat == int(VarStat.FIXED))
+    xN = torch.where(at_lo, lo, torch.where(vstat == int(VarStat.AT_UPPER), hi, 0.0))[..., None]
+    cB = torch.gather(c, 1, idx)[..., None]
+
+    def run():
+        rhs = b[..., None] - torch.bmm(A, xN)
+        LU, piv, _info = torch.linalg.lu_factor_ex(Bmat)
+        xB = torch.linalg.lu_solve(LU, piv, rhs)
+        y = torch.linalg.lu_solve(LU, piv, cB, adjoint=True)
+        return xB, c - torch.bmm(y.transpose(1, 2), A)[:, 0]
+
+    run()
+    return min(timed(torch, run)[1] for _ in range(3))
+
+
 def batched_main_path(torch, batch=BATCH):
     """Phase 5: `solve_batches_pipelined` as bench.py's batched line runs it,
     then `solve_heterogeneous` on a mixed list (K3's launches counted over
-    both), `solve_batch_certified` through K1, and K3 alone on one
-    device-resident batch.  Returns K3's launches on the batched path."""
+    both), `solve_batch_certified` through K1, each certified on the card
+    (the host's `_verify_f64` never called), and K3 alone on one
+    device-resident batch.  Returns K3's and the certificate's launches on
+    the batched path."""
     from minilp_tpu_torch.ops.kernels import batched_simplex as bs
+    from minilp_tpu_torch.ops.kernels import certify
     from minilp_tpu_torch.ops.kernels import packed_simplex as ps
     from minilp_tpu_torch.parallel import batched, scheduling
     from minilp_tpu_torch.utils import profiling
@@ -888,19 +1124,20 @@ def batched_main_path(torch, batch=BATCH):
     run_pipelined = lambda bs_: batched.solve_batches_pipelined(
         bs_, device=DEVICE, pack=PACK, max_iter=2000, structural_cols=BATCH_NV)
     batches = [random_batch(1 + k, batch, BATCH_M, BATCH_NV) for k in range(4)]
-    ps.launches = 0  # counts from here on are the batched path's
-    run_pipelined([random_batch(0, batch, BATCH_M, BATCH_NV)])  # warm-up batch
-    walls, rep_stages = [], []
-    for _rep in range(3):
-        profiling.reset_stages()
-        t0 = time.perf_counter()
-        results = run_pipelined(batches)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        rep_stages.append(profiling.stages())
-    if ps.launches != 1 + 3 * len(batches):
-        raise AssertionError(f"pipelined: {ps.launches} K3 launches for "
-                             f"{1 + 3 * len(batches)} batches")
+    ps.launches = certify.launches = 0  # counts from here on are the batched path's
+    with host_checks_counted() as host_checks:
+        run_pipelined([random_batch(0, batch, BATCH_M, BATCH_NV)])  # warm-up batch
+        walls, rep_stages = [], []
+        for _rep in range(3):
+            profiling.reset_stages()
+            t0 = time.perf_counter()
+            results = run_pipelined(batches)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            rep_stages.append(profiling.stages(None))
+    if ps.launches != 1 + 3 * len(batches) or certify.launches != ps.launches:
+        raise AssertionError(f"pipelined: {ps.launches} K3 launches and {certify.launches} "
+                             f"certificate launches for {1 + 3 * len(batches)} batches")
     lps_s = sorted(len(batches) * batch / w for w in walls)
     verified = np.concatenate([r.verified for r in results])
     if not verified.all():
@@ -909,39 +1146,57 @@ def batched_main_path(torch, batch=BATCH):
     pack_max = niter.reshape(-1, PACK).max(1)
     sample = np.random.default_rng(0).choice(len(batches) * batch, 64, replace=False)
     lanes = [tuple(x[i % batch] for x in batches[i // batch]) for i in sample]
-    gap = highs_gaps(lanes, [float(results[i // batch].obj[i % batch]) for i in sample])
-    log(f"  pipelined 4 x {batch} (32x128, pack {PACK}, structural upload): "
-        f"certified LPs/s median={lps_s[1]:.1f} spread={lps_s[0]:.1f}..{lps_s[2]:.1f} "
+    gap = highs_gaps(lanes, [float(results[i // batch].obj[i % batch]) for i in sample],
+                     tol=1e-9)
+    log(f"  pipelined 4 x {batch} (32x128, pack {PACK}, structural upload, the certificate "
+        f"on the card): certified LPs/s median={lps_s[1]:.1f} "
+        f"spread={lps_s[0]:.1f}..{lps_s[2]:.1f} "
         f"walls_s={[round(w, 4) for w in walls]} verified={int(verified.sum())}/{verified.size} "
         f"status={np.bincount(np.concatenate([r.status for r in results])).tolist()} "
         f"pivots mean={niter.mean():.2f} pack-max mean={pack_max.mean():.2f} "
-        f"max_rel_gap_highs_64={gap:.3e}")
+        f"max_rel_gap_highs_64={gap:.3e}; certificate launches {certify.launches} "
+        f"(one a batch)")
     log(f"  stages per repetition (4 batches): {rep_stages}")
 
     lps = mixed_lps(50)
+    n_buckets = len(scheduling.bucket_lps(lps, pack=PACK)[1])
+    cert0 = certify.launches
     t0 = time.perf_counter()
-    het = scheduling.solve_heterogeneous(lps, pack=PACK, device=DEVICE)
+    with host_checks_counted() as more:
+        het = scheduling.solve_heterogeneous(lps, pack=PACK, device=DEVICE)
+    host_checks += more
     wall_het = time.perf_counter() - t0
-    if not all(r.verified for r in het):
-        raise AssertionError("solve_heterogeneous: not all LPs certified")
+    if not all(r.verified for r in het) or certify.launches - cert0 != n_buckets:
+        raise AssertionError(f"solve_heterogeneous: certified {sum(r.verified for r in het)}"
+                             f"/{len(het)}, {certify.launches - cert0} certificate launches "
+                             f"for {n_buckets} buckets")
     pick = list(range(0, len(lps), 10))
     gap_het = highs_gaps([lps[i] for i in pick], [het[i].obj for i in pick])
     k3_launches = ps.launches
-    log(f"  solve_heterogeneous ({len(lps)} LPs in "
-        f"{len(scheduling.bucket_lps(lps, pack=PACK)[1])} buckets): "
+    log(f"  solve_heterogeneous ({len(lps)} LPs in {n_buckets} buckets): "
         f"wall_s={wall_het:.4f} max_rel_gap_highs_{len(pick)}={gap_het:.3e}")
     log(f"  K3 launches on the batched path: {k3_launches}")
 
     bs.launches = 0
+    cert0 = certify.launches
     t0 = time.perf_counter()
-    cert = batched.solve_batch_certified(*batches[0], device=DEVICE)
+    with host_checks_counted() as more:
+        cert = batched.solve_batch_certified(*batches[0], device=DEVICE)
+    host_checks += more
     wall_k1 = time.perf_counter() - t0
-    if not cert.verified.all() or bs.launches != 1:
-        raise AssertionError("solve_batch_certified: not all lanes certified through K1")
+    if not cert.verified.all() or bs.launches != 1 or certify.launches - cert0 != 1:
+        raise AssertionError("solve_batch_certified: not all lanes certified through K1 "
+                             "and one certificate launch")
     gap_k1 = highs_gaps([tuple(x[i] for x in batches[0]) for i in range(16)],
                         [float(o) for o in cert.obj[:16]])
     log(f"  solve_batch_certified (K1, batch {batch}): wall_s={wall_k1:.4f} "
         f"pivots={int(cert.niter.sum())} max_rel_gap_highs_16={gap_k1:.3e}")
+    if host_checks:
+        raise AssertionError(f"the batch entry points called the host's _verify_f64 on "
+                             f"{host_checks}")
+    cert_launches = certify.launches
+    log(f"  certificate launches on the batched path: {cert_launches}; the host's "
+        f"_verify_f64 called 0 times")
 
     # the kernels alone on one device-resident batch, K3 and then K1
     n = BATCH_M + BATCH_NV
@@ -959,7 +1214,7 @@ def batched_main_path(torch, batch=BATCH):
         log(f"  {name} alone on one device-resident batch of {batch}: {t:.3f} ms "
             f"({batch / t * 1e3:.0f} LPs/s, no host verification), pivots={int(it.sum())}, "
             f"bound_ms={bnd[0]:.5f} ({bnd[1]})")
-    return k3_launches
+    return k3_launches, cert_launches
 
 
 #: phase 6's node chains: tag -> (problem, options, cold-solve event, the
@@ -1450,12 +1705,13 @@ def examples_main_path(torch, rec_path, cmp_k1, cmp_k2, tsp_sizes=TSP_SIZES,
     from minilp_tpu_torch import SolverOptions
     from minilp_tpu_torch.examples import netlib_runner, scenario_batch, tsp
     from minilp_tpu_torch.io.mps import write_mps
-    from minilp_tpu_torch.ops.kernels import batched_simplex as bs, streaming_simplex as ss
+    from minilp_tpu_torch.ops.kernels import batched_simplex as bs, certify
+    from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
     from minilp_tpu_torch.utils.synth import netlib_shaped_problem
 
     log("[8a] the examples on the card")
     recorded = []  # (tag, launches through the driver's routes)
-    bs.launches = ss.launches = 0  # counts from here on are the examples' path
+    bs.launches = ss.launches = certify.launches = 0  # counts from here on are the examples' path
     for n in tsp_sizes:
         rng = np.random.default_rng(0)
         pts = rng.random((n, 2))
@@ -1482,16 +1738,18 @@ def examples_main_path(torch, rec_path, cmp_k1, cmp_k2, tsp_sizes=TSP_SIZES,
             f"wall_s={wall:.3f} tour={sorted(tour)}")
 
     k1 = bs.launches
-    with contextlib.redirect_stdout(io.StringIO()) as out, \
+    with contextlib.redirect_stdout(io.StringIO()) as out, host_checks_counted() as host, \
             recording_batch_calls(scenario_batch) as batch_calls:
         res = scenario_batch.main(*scenarios, device=DEVICE)
     for line in out.getvalue().splitlines():
         log("  scenario_batch: " + line)
-    if not (res["status"] == 1).all() or bs.launches == k1:
+    if not (res["status"] == 1).all() or bs.launches == k1 or certify.launches != 1 or host:
         raise AssertionError(f"scenario_batch: statuses {np.unique(res['status'])}, "
-                             f"K1 launches {bs.launches - k1}")
+                             f"K1 launches {bs.launches - k1}, certificate launches "
+                             f"{certify.launches}, host checks {len(host)}")
     batch = scenarios[0]
-    log(f"  scenario_batch {batch} x ({scenarios[1]}x{scenarios[2]}): K1 + certificate "
+    log(f"  scenario_batch {batch} x ({scenarios[1]}x{scenarios[2]}): K1 + the certificate on "
+        f"the card "
         f"{res['kernel_s']:.3f} s = {batch / res['kernel_s']:.1f} certified LPs/s; "
         f"fallback lanes {res['fallback'].tolist()} ({res['fallback_s']:.3f} s); "
         f"every lane OPTIMAL")
@@ -1512,7 +1770,8 @@ def examples_main_path(torch, rec_path, cmp_k1, cmp_k2, tsp_sizes=TSP_SIZES,
         raise AssertionError(f"netlib_runner at the 25fv47 shape: exit {rc}, {rec}")
     if events != ["cold_solve_streaming"] or ss.launches == k2:
         raise AssertionError(f"netlib_runner: records {events}, K2 launches {ss.launches - k2}")
-    counts = {"batched_simplex": bs.launches, "streaming_simplex": ss.launches}
+    counts = {"batched_simplex": bs.launches, "streaming_simplex": ss.launches,
+              "certify_f64": certify.launches}
 
     # every launch above against its plain version on the same inputs (K2's
     # one-block rerun is phase 3b's check, at this shape)
@@ -1680,7 +1939,12 @@ def check_bench_line(line, card, k2_pivots, n_lps=4 * BATCH, maros_obj=MAROS_OBJ
             finite(pd["kkt_err"]) and finite(pd.get("rel_gap_vs_certified"))
             and finite(pd.get("over_budget_s"))),
         "the card named": line["device"] == card,
-        "K1, K2 and K3 launched": all(n > 0 for n in line["launches"].values()),
+        "K1, K2, K3 and the certificate launched": (
+            set(line["launches"]) == set(BENCH_KERNELS)
+            and all(n > 0 for n in line["launches"].values())),
+        "the batched line's stages": (
+            set(BATCH_STAGES) <= set(line["batch_stages"])
+            and all(finite(line["batch_stages"][k]) for k in BATCH_STAGES)),
     }
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
@@ -1723,7 +1987,7 @@ def main() -> int:
 
 
 def phases(torch) -> int:
-    """Phases 1 to 9 (the module docstring)."""
+    """Phases 1 to 9 (the module docstring; 5b runs before 5)."""
     t_start = time.perf_counter()
     sys.path.insert(0, str(HERE))
     import minilp_tpu_torch
@@ -1751,7 +2015,7 @@ def phases(torch) -> int:
     log("    nvcc: " + nvcc.splitlines()[-1])
 
     # ---- 2. build every kernel of the paths ---------------------------------
-    build_all(build, ["batched_simplex", "streaming_simplex", "packed_simplex"])
+    build_all(build, ["batched_simplex", "streaming_simplex", "packed_simplex", "certify_f64"])
 
     # ---- 3. K1 against its plain version on the card ------------------------
     log("[3] K1 (CUDA) vs plain torch on the card")
@@ -1879,8 +2143,11 @@ def phases(torch) -> int:
     log(f"  25fv47 without K2 (f64 torch engine on the card): wall_s={walls[0]:.3f} "
         f"pivots={pivots}")
 
+    # ---- 5b. the f64 certificate against its plain version and the host ---
+    cert = compare_certify(torch)
+
     # ---- 5. the batched main path: solve_batches_pipelined through K3 -------
-    k3_launches = batched_main_path(torch)
+    k3_launches, cert_launches = batched_main_path(torch)
 
     # ---- 6. the incremental main path: warm re-solves through the API -------
     bs.launches = ss.launches = 0  # counts from here on are the incremental path's
@@ -1916,20 +2183,30 @@ def phases(torch) -> int:
                                      "incremental": warm["streaming_simplex"],
                                      "examples": ex["streaming_simplex"],
                                      "bench": bench["streaming_simplex"]},
-               "packed_simplex": {"batched": k3_launches, "bench": bench["packed_simplex"]}}
-    row = lambda name, tpu_line, cmp, ms, plain_ms, bnd: {
+               "packed_simplex": {"batched": k3_launches, "bench": bench["packed_simplex"]},
+               "certify_f64": {"batched": cert_launches, "examples": ex["certify_f64"],
+                               "bench": bench["certify_f64"]}}
+    row = lambda name, replaces, err, ms, plain_ms, bnd, library_ms=None: {
         "name": name, "route": "cuda", "source": f"minilp_tpu_torch/csrc/{name}.cu",
-        "replaces": f"minilp_tpu/ops/kernels/{name}.py:{tpu_line}",
+        "replaces": replaces,
         "launches": sum(by_path[name].values()), "launches_by_path": by_path[name],
-        "max_abs_err": cmp.max_abs_err, "ms": ms,
+        "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
         # no single PyTorch call solves an LP
-        "library_ms": None,
+        "library_ms": library_ms,
     }
+    tpu = "minilp_tpu/ops/kernels/{}.py:{}".format
     kernels = {"kernels": [
-        row("batched_simplex", 68, cmp_, ms_k, ms_p, k1_bound),
-        row("streaming_simplex", 134, cmp2, ms2_k, ms2_p, k2_bound),
-        row("packed_simplex", 60, cmp3, ms3_k, ms3_p, k3_bound),
+        row("batched_simplex", tpu("batched_simplex", 68), cmp_.max_abs_err, ms_k, ms_p,
+            k1_bound),
+        row("streaming_simplex", tpu("streaming_simplex", 134), cmp2.max_abs_err, ms2_k, ms2_p,
+            k2_bound),
+        row("packed_simplex", tpu("packed_simplex", 60), cmp3.max_abs_err, ms3_k, ms3_p,
+            k3_bound),
+        dict(row("certify_f64", tpu("batched_simplex", 555), cert["max_abs_err"], cert["ms"],
+                 cert["plain_ms"], cert["bound"], cert["library_ms"]),
+             replaces_note="host numpy (_verify_f64), not a Pallas kernel",
+             host_ms=cert["host_ms"]),
     ]}
     log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))

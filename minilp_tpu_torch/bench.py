@@ -7,10 +7,11 @@ and its lines, each run through the port's own entry points:
 
 * the batched line (`bench.py:414-494`): certified LPs/s of
   `parallel.batched.solve_batches_pipelined` (K3, the packed simplex
-  kernel, with the host's f64 certificate) over four fresh batches of 1024
-  dense 32×128 LPs at pack 8, median of 3 repetitions with the spread; K3
-  alone on one device-resident batch; scipy-HiGHS on 64 LPs of the first
-  batch as the baseline and the check;
+  kernel, with the f64 certificate on the same device) over four fresh
+  batches of 1024 dense 32×128 LPs at pack 8, median of 3 repetitions with
+  the spread, and the pipeline's stages (`batch_stages`) over the median
+  repetition; K3 alone on one device-resident batch; scipy-HiGHS on 64 LPs
+  of the first batch as the baseline and the check;
 * `_single_lp_and_incremental_metrics`: `Problem.solve()` cold at
   bench.py's two `single_lp` shapes (K1), then a chain of 6
   `add_constraint` cuts (`utils/node_chain.run_chain`);
@@ -25,15 +26,15 @@ and its lines, each run through the port's own entry points:
 * `_pdhg_maros_metric`, last: the crossover's f32 device stage for half of
   a 90 s budget, then the sparse f64 PDHG engine in `stop_at` chunks, warm.
 
-On a card the three kernels are built first, all at once (one `nvcc`
+On a card the four kernels are built first, all at once (one `nvcc`
 each, or loaded from `build/minilp_tpu_torch/` where built before), so no
 line's wall carries a build.  It prints exactly one JSON line, whose keys
 are a superset of bench.py's: `backend` is the torch device type, `device`
 the card's name and power limit as `nvidia-smi` gives them,
-`kernel_build_s` the wall of the builds, `launches` the launches of K1, K2
-and K3 during the run.  Each line takes its sizes as keyword arguments (bench.py's
-by default), so the tests run every line small on the CPU, where each
-kernel runs as its plain torch version.
+`kernel_build_s` the wall of the builds, `launches` the launches of K1, K2,
+K3 and the certificate during the run.  Each line takes its sizes as
+keyword arguments (bench.py's by default), so the tests run every line
+small on the CPU, where each kernel runs as its plain torch version.
 
 Differences from bench.py, named: no chip lock, no `.jax_cache`, no
 `jax.default_backend() != "tpu"` guards (every line runs on the device
@@ -60,7 +61,7 @@ import torch
 
 from .canonical import canonicalize
 from .engine import crossover, driver, pdhg
-from .ops.kernels import batched_simplex, build, packed_simplex, streaming_simplex
+from .ops.kernels import batched_simplex, build, certify, packed_simplex, streaming_simplex
 from .options import SolverOptions
 from .parallel.batched import make_random_batch_host, solve_batches_pipelined
 from .status import Status
@@ -78,7 +79,7 @@ PDHG_BUDGET_S = 90.0
 K3_KW = dict(max_iter=2000, refactor_period=32, feas_tol=1e-5, opt_tol=1e-6,
              pivot_tol=1e-6, bland_after=200)
 KERNELS = {"batched_simplex": batched_simplex, "streaming_simplex": streaming_simplex,
-           "packed_simplex": packed_simplex}
+           "packed_simplex": packed_simplex, "certify_f64": certify}
 
 
 def _sync(device) -> None:
@@ -115,12 +116,14 @@ def _batched_metrics(*, device, batch=BATCH, m=M, nv=NV, pack=PACK, n_batches=N_
     run([make_random_batch_host(0, batch=batch, m=m, nv=nv)])  # warm-up batch
     batches = [make_random_batch_host(1 + k, batch=batch, m=m, nv=nv)
                for k in range(n_batches)]
-    rep_walls = []
+    rep_walls, rep_stages = [], []
     for _rep in range(3):
+        profiling.reset_stages()
         t0 = time.perf_counter()
         results = run(batches)
         _sync(device)
         rep_walls.append(time.perf_counter() - t0)
+        rep_stages.append(profiling.stages(None))
     dt = float(np.median(rep_walls))
     lps_per_sec = n_batches * batch / dt
     statuses = np.concatenate([r.status for r in results])
@@ -171,6 +174,9 @@ def _batched_metrics(*, device, batch=BATCH, m=M, nv=NV, pack=PACK, n_batches=N_
         "simplex_iters_per_sec": float(niters.sum() / dt),
         "wall_s": dt,
         "device_only_lps_per_sec": batch / min(kernel_ts),
+        # the pipeline's stages over the median repetition's batches
+        # (`solve_batches_pipelined`; the `_dev_s` ones on a card only)
+        "batch_stages": rep_stages[int(np.argsort(rep_walls)[1])],
     }
 
 

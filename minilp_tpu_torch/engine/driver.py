@@ -466,19 +466,21 @@ def _try_megakernel_solve(can: CanonicalLP, opts: SolverOptions,
     fault raises.  `warm_state=(basis, vstat, Binv)` (unbatched host arrays)
     re-solves from a previous basis: the incremental API's warm restart.
     """
-    from ..ops.kernels.batched_simplex import solve_batch_megakernel
+    from ..ops.kernels.batched_simplex import megakernel_rows, upload, verify_rows_f64
 
     dev = _device(opts)
     if warm_state is not None:
         warm_state = tuple(np.asarray(x)[None] for x in warm_state)
+    lp = [x[None] for x in (can.A, can.b, can.c, can.lo, can.hi)]
     with profiling.stage("megakernel_s", dev):
-        res = solve_batch_megakernel(
-            can.A[None], can.b[None], can.c[None], can.lo[None], can.hi[None],
-            device=dev,
+        # f32 on the device; the exact f64 check of the basis on the host
+        rows = megakernel_rows(
+            *upload(dev, *lp, dtype=np.float32),
             slack0=can.nv,
             max_iter=opts.effective_max_iter(can.M, can.N),
             warm_state=warm_state,
         )
+        res = verify_rows_f64(rows.cpu().numpy(), *lp)
     basis = np.asarray(res.basis[0])
     vstat = np.asarray(res.vstat[0]).astype(np.int8)
     if not bool(res.verified[0]):

@@ -4,7 +4,8 @@ The two batched engines (BASELINE config 3):
   * K1 in batch mode (`ops.kernels.batched_simplex.solve_batch_megakernel`,
     one thread block per LP on the card, its plain torch version on the
     CPU): the f32 simplex loop plus the exact f64 certificate of each final
-    basis, the throughput path;
+    basis on the same device (`ops/kernels/certify.py`), the throughput
+    path;
   * the f64 torch engine (`parallel.batched.solve_batch`), lane after lane:
     the fallback for the lanes whose basis fails the certificate.
 

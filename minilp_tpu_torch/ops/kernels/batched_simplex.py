@@ -21,10 +21,13 @@ Three layers, as in the JAX package:
 * `simplex_plain` — a torch transcription of the kernel on tensors (any
   device), batched over LPs in lockstep.  The CPU tests use it, and
   `chip_smoke.py` compares the kernel against it on the card.
-* `solve_batch_megakernel` — host numpy in, f32 to the device, one kernel
-  call, one device-to-host copy of (basis, vstat, status, niter), then
-  `_verify_f64`: the basis is combinatorial, so the exact vertex and an f64
-  optimality certificate come from one host LU per LP.
+* `megakernel_rows` — one kernel call on device tensors, cast to f32 on the
+  device.  The basis it finds is combinatorial, so the exact vertex and an
+  f64 optimality certificate follow from one f64 LU per LP:
+  `solve_batch_megakernel`, the batch entry point, certifies on the same
+  device (`certify.py`'s kernel, one device-to-host copy of the results);
+  the driver's single-LP route copies the rows to the host and checks them
+  there (`verify_rows_f64`, `_verify_f64`).
 
 The iterate is f32 (matmuls in full f32: the plain version expects
 `torch.backends.cuda.matmul.allow_tf32` to be False, PyTorch's default).
@@ -42,7 +45,7 @@ import numpy as np
 import torch
 
 from ...status import Status, VarStat
-from . import build
+from . import build, certify
 
 
 class BatchResult(NamedTuple):
@@ -441,10 +444,16 @@ def simplex_plain(
                       status.unsqueeze(1), niter.unsqueeze(1)], dim=1).contiguous()
 
 
-def solve_batch_megakernel(
+def upload(device, *arrays, dtype=np.float64) -> list:
+    """Host arrays → C-ordered tensors of `dtype` on `device` (a B⁻¹ from the
+    sparse LU's solve is Fortran-ordered)."""
+    dev = torch.device(device)
+    return [torch.tensor(np.ascontiguousarray(x, dtype=dtype), device=dev) for x in arrays]
+
+
+def megakernel_rows(
     A, b, c, lo, hi,
     *,
-    device,
     slack0: Optional[int] = None,
     max_iter: int = 2000,
     refactor_period: int = 32,
@@ -453,41 +462,54 @@ def solve_batch_megakernel(
     pivot_tol: float = 1e-6,
     bland_after: int = 200,
     warm_state: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None,
-) -> BatchResult:
-    """Solve B canonical LPs in one K1 call on `device` (module docstring).
-
-    Inputs: host arrays A (B, m, n), b (B, m), c/lo/hi (B, n) — cast to f32
-    for the device, kept in f64 for the certificate.  The identity slack
-    block occupies columns [slack0, slack0+m) and forms the initial basis;
-    `slack0=None` means the last m columns, while canonicalized problems pass
-    `slack0=can.nv`.  `warm_state=(basis0 (B, m), vstat0 (B, n), Binv0
-    (B, m, m))` starts each LP from that state instead of the slack basis.
-    Returns exact f64 objectives recomputed from the discovered bases plus
-    `verified` flags.
-    """
-    A = np.asarray(A)
-    Bsz, m, n = A.shape
-    if slack0 is None:
-        slack0 = n - m
-    dev = torch.device(device)
-    # C order on the device whatever the host layout (a B⁻¹ from the sparse
-    # LU's solve is Fortran-ordered)
-    up = lambda x, dt: torch.tensor(np.ascontiguousarray(x, dtype=dt), device=dev)
-    args = [up(x, np.float32) for x in (A, b, c, lo, hi)]
+) -> torch.Tensor:
+    """One K1 call on the batch A (B, m, n), b (B, m), c/lo/hi (B, n), tensors
+    on one device, cast to f32 there (round to nearest even: the bits of
+    numpy's `astype(np.float32)`).  The identity slack block occupies columns
+    [slack0, slack0+m) and forms the initial basis; `slack0=None` means the
+    last m columns, while canonicalized problems pass `slack0=can.nv`.
+    `warm_state=(basis0 (B, m), vstat0 (B, n), Binv0 (B, m, m))`, host
+    arrays, starts each LP from that state instead of the slack basis.
+    Returns the out rows (B, m + n + 2) int32 on that device."""
+    m, n = A.shape[1], A.shape[2]
+    f32 = [x.to(torch.float32).contiguous() for x in (A, b, c, lo, hi)]
     warm = None
     if warm_state is not None:
         basis0, vstat0, Binv0 = warm_state
-        warm = (up(basis0, np.int32), up(vstat0, np.int32), up(Binv0, np.float32))
-    out = simplex_kernel_call(
-        *args, warm, slack0=slack0, max_iter=max_iter,
+        warm = (*upload(A.device, basis0, vstat0, dtype=np.int32),
+                *upload(A.device, Binv0, dtype=np.float32))
+    return simplex_kernel_call(
+        *f32, warm, slack0=n - m if slack0 is None else slack0, max_iter=max_iter,
         refactor_period=refactor_period, feas_tol=feas_tol, opt_tol=opt_tol,
         pivot_tol=pivot_tol, bland_after=bland_after,
     )
-    host = out.cpu().numpy()  # the one device-to-host copy
-    basis = host[:, :m]
-    vstat = host[:, m:m + n]
-    status = host[:, m + n]
-    niter = host[:, m + n + 1]
+
+
+def solve_batch_megakernel(A, b, c, lo, hi, *, device, **kernel_kwargs) -> BatchResult:
+    """Solve B canonical LPs in one K1 call on `device`, every lane certified
+    on the same device: the batch entry point (module docstring).
+
+    Inputs: host arrays A (B, m, n), b (B, m), c/lo/hi (B, n), uploaded in
+    f64; the kernel takes them cast to f32 on the device, the certificate
+    (`certify.certify_out`) in f64.  `kernel_kwargs` are `megakernel_rows`'s.
+    Returns exact f64 objectives and vertices recomputed from the discovered
+    bases plus `verified` flags, after one device-to-host copy.
+    """
+    data = upload(device, A, b, c, lo, hi)
+    out = megakernel_rows(*data, **kernel_kwargs)
+    m, n = data[0].shape[1:]
+    return BatchResult(*certify.host_fields(certify.certify_out(out, *data).cpu().numpy(), m, n))
+
+
+def verify_rows_f64(rows, A, b, c, lo, hi) -> BatchResult:
+    """The host's exact f64 check (`_verify_f64`) of K1's or K3's output rows
+    (host (B, m + n + 2) int32, ``[basis | vstat | status | niter]``)
+    against the host batch: the certificate of the single-LP routes."""
+    A = np.asarray(A)
+    B, m, n = A.shape
+    host = np.asarray(rows).reshape(B, m + n + 2)
+    basis, vstat = host[:, :m], host[:, m:m + n]
+    status, niter = host[:, m + n], host[:, m + n + 1]
     obj, verified, x = _verify_f64(A, b, c, lo, hi, basis, vstat, status)
     return BatchResult(basis=basis, vstat=vstat, status=status, niter=niter,
                        obj=obj, verified=verified, x=x)
@@ -497,7 +519,9 @@ def _verify_f64(A, b, c, lo, hi, basis, vstat, status):
     """Exact f64 vertex + optimality certificate from the f32 bases.
 
     Runs on the HOST in numpy: the basis is combinatorial, so the exact vertex
-    is one batched f64 LU solve.  (Unchanged from the JAX package.)
+    is one batched f64 LU solve.  (Unchanged from the JAX package.)  The
+    single-LP routes' certificate; the batch entry points certify on the
+    device (`certify.py`), whose tests hold it to this check.
     """
     A = np.asarray(A, dtype=np.float64)
     b = np.asarray(b, dtype=np.float64)

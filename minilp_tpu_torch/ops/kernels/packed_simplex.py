@@ -32,9 +32,10 @@ Three layers, as for K1:
   same bits.
 * `packed_plain` — the kernel's plain torch version (any device): K1's plain
   loop body (`batched_simplex.simplex_plain`) with the pack's refresh rule.
-* `solve_batch_packed` — host numpy in, f32 to the device, one kernel call,
-  one device-to-host copy of (basis, vstat, status, niter), then the exact
-  f64 check `_verify_f64` shared with K1.
+* `solve_batch_packed` — host numpy in, f64 to the device and cast to f32
+  there, one kernel call, then the exact f64 certificate of every lane on
+  the same device (`certify.py`, shared with K1's batch entry point) and
+  one device-to-host copy.
 """
 
 from __future__ import annotations
@@ -45,8 +46,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import build
-from .batched_simplex import BatchResult, _verify_f64, simplex_plain
+from . import build, certify
+from .batched_simplex import BatchResult, simplex_plain, upload
 
 #: launches of the CUDA kernel in this process (plain-version calls do not
 #: count); `chip_smoke.py` resets it before driving the batched path and
@@ -212,31 +213,22 @@ def packed_plain(
     return out.view(P, pack, m + n + 2)
 
 
-def upload_packed(A, b, c, lo, hi, *, pack: int, device) -> list:
-    """Host (B, m, n)-batch arrays → the kernel's f32 inputs on `device`."""
-    A = np.asarray(A)
+def packed_args(A, b, c, lo, hi, *, pack: int) -> list:
+    """The batch A (B, m, n), b (B, m), c/lo/hi (B, n), tensors on one
+    device, as the kernel's f32 inputs, cast on that device (round to
+    nearest even: the bits of numpy's `astype(np.float32)`)."""
     B, m, n = A.shape
     if B % pack != 0:
         raise ValueError(f"batch {B} not divisible by pack {pack}")
     P = B // pack
-    dev = torch.device(device)
-    up = lambda x, shape: torch.tensor(np.asarray(x, dtype=np.float32).reshape(shape),
-                                       device=dev)
-    return [up(A, (P, pack * m, n)), up(b, (P, pack, m)), up(c, (P, pack, n)),
-            up(lo, (P, pack, n)), up(hi, (P, pack, n))]
+    f32 = lambda x, shape: x.to(torch.float32).reshape(shape).contiguous()
+    return [f32(A, (P, pack * m, n)), f32(b, (P, pack, m)), f32(c, (P, pack, n)),
+            f32(lo, (P, pack, n)), f32(hi, (P, pack, n))]
 
 
-def certify_rows(rows, A, b, c, lo, hi) -> BatchResult:
-    """The exact f64 check of K3's output rows (host (B, m + n + 2) int32,
-    ``[basis | vstat | status | niter]``) against the host batch."""
-    A = np.asarray(A)
-    B, m, n = A.shape
-    host = np.asarray(rows).reshape(B, m + n + 2)
-    basis, vstat = host[:, :m], host[:, m:m + n]
-    status, niter = host[:, m + n], host[:, m + n + 1]
-    obj, verified, x = _verify_f64(A, b, c, lo, hi, basis, vstat, status)
-    return BatchResult(basis=basis, vstat=vstat, status=status, niter=niter,
-                       obj=obj, verified=verified, x=x)
+def upload_packed(A, b, c, lo, hi, *, pack: int, device) -> list:
+    """Host (B, m, n)-batch arrays → the kernel's f32 inputs on `device`."""
+    return packed_args(*upload(device, A, b, c, lo, hi), pack=pack)
 
 
 def solve_batch_packed(
@@ -256,19 +248,19 @@ def solve_batch_packed(
     (module docstring); the contract of `solve_batch_megakernel`.
 
     Host arrays A (B, m, n), b (B, m), c/lo/hi (B, n), B a multiple of
-    `pack` (callers pad or pick the pack).  The identity slack block occupies
-    columns [slack0, slack0+m) and forms the initial basis; `slack0=None`
-    means the last m columns.  Returns exact f64 objectives recomputed from
-    the discovered bases plus `verified` flags.
+    `pack` (callers pad or pick the pack), uploaded in f64: the kernel takes
+    them cast to f32 on the device, the certificate (`certify.certify_out`,
+    on the same device) in f64.  The identity slack block occupies columns
+    [slack0, slack0+m) and forms the initial basis; `slack0=None` means the
+    last m columns.  Returns exact f64 objectives and vertices recomputed
+    from the discovered bases plus `verified` flags, after one
+    device-to-host copy.
     """
-    A = np.asarray(A)
-    B, m, n = A.shape
-    if slack0 is None:
-        slack0 = n - m
-    args = upload_packed(A, b, c, lo, hi, pack=pack, device=device)
+    data = upload(device, A, b, c, lo, hi)
+    B, m, n = data[0].shape
     out = packed_kernel_call(
-        *args, pack=pack, slack0=slack0, max_iter=max_iter,
-        refactor_period=refactor_period, feas_tol=feas_tol, opt_tol=opt_tol,
-        pivot_tol=pivot_tol, bland_after=bland_after,
+        *packed_args(*data, pack=pack), pack=pack, slack0=n - m if slack0 is None else slack0,
+        max_iter=max_iter, refactor_period=refactor_period, feas_tol=feas_tol,
+        opt_tol=opt_tol, pivot_tol=pivot_tol, bland_after=bland_after,
     )
-    return certify_rows(out.cpu().numpy(), A, b, c, lo, hi)  # the one device-to-host copy
+    return BatchResult(*certify.host_fields(certify.certify_out(out, *data).cpu().numpy(), m, n))

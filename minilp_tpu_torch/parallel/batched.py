@@ -4,17 +4,18 @@ Many independent canonical LPs per call, with no communication between
 them.  Entry points:
 
 * `solve_batches_pipelined` — a sequence of host batches through K3 (the
-  packed simplex kernel, `ops/kernels/packed_simplex.py`): the upload of
-  batch k+1 and the host's exact f64 certification of batch k overlap the
-  device solve of batch k;
+  packed simplex kernel, `ops/kernels/packed_simplex.py`) and the exact f64
+  certificate on the device (`ops/kernels/certify.py`): the upload of batch
+  k+1 and the host's finishing of batch k−1 overlap the device work of
+  batch k;
 * `solve_batch_certified` — one batch through K1 in batch mode (one LP per
-  thread block), every lane certified;
+  thread block), every lane certified on the device;
 * `solve_batch` — the f64 torch engine, lane after lane;
 * `solve_batch_sharded` — the same, the batch split over the ranks of a
   mesh's 'data' axis (`torch.distributed`, no communication until the
   result is put back together);
 * `resolve_unverified_host` — the shared tail: an exact scipy-HiGHS re-solve
-  of every lane whose f32 basis failed the f64 certificate.
+  on the host of every lane whose f32 basis failed the f64 certificate.
 
 The device is explicit (`device="cuda"` by default, "cpu" runs every kernel
 as its plain torch version).
@@ -30,8 +31,8 @@ import torch
 
 from ..engine.primal import solve_canonical
 from ..engine.state import SimplexState
-from ..ops.kernels import packed_simplex as ps
-from ..ops.kernels.batched_simplex import solve_batch_megakernel
+from ..ops.kernels import certify, packed_simplex as ps
+from ..ops.kernels.batched_simplex import BatchResult, solve_batch_megakernel
 from ..options import SolverOptions
 from ..status import Status, VarStat
 from ..utils import profiling
@@ -116,26 +117,27 @@ def solve_batch_certified(A, b, c, lo, hi, *, device="cuda", slack0=None,
     """Batched solve where EVERY lane's answer is exact and certified.
 
     K1 in batch mode (one thread block per LP, f32 iterate) plus the exact
-    f64 host recompute of each discovered basis; the rare lanes whose basis
-    fails the certificate are re-solved on the host (scipy-HiGHS), so the
-    returned `verified` mask is all-True unless a lane is pathological.
+    f64 recompute of each discovered basis on the same device; the rare
+    lanes whose basis fails the certificate are re-solved on the host
+    (scipy-HiGHS), so the returned `verified` mask is all-True unless a lane
+    is pathological.
     """
     res = solve_batch_megakernel(A, b, c, lo, hi, device=device, slack0=slack0,
                                  max_iter=max_iter)
     return resolve_unverified_host(res, A, b, c, lo, hi)
 
 
-def _host_f32(x, shape, pinned: bool) -> torch.Tensor:
-    """One cast of host data to f32, into page-locked memory on a card (so
-    that its upload can run asynchronously)."""
-    t = torch.empty(shape, dtype=torch.float32, pin_memory=pinned)
-    t.numpy()[...] = np.asarray(x).reshape(shape)
+def _host_f64(x, pinned: bool) -> torch.Tensor:
+    """Host data as one C-ordered f64 tensor, in page-locked memory on a
+    card (so that its upload can run asynchronously)."""
+    t = torch.empty(np.shape(x), dtype=torch.float64, pin_memory=pinned)
+    t.numpy()[...] = x
     return t
 
 
-def _assemble_packed(A_s, *, pack: int, slack0: int, n: int) -> torch.Tensor:
+def _assemble(A_s, *, slack0: int, n: int) -> torch.Tensor:
     """Device-side assembly of [structural | identity slack | padding] from
-    the uploaded structural block (B, m, nv) → packed (B/pack, pack·m, n)."""
+    the uploaded structural block A_s (B, m, nv) → A (B, m, n)."""
     B, m, nv = A_s.shape
     if slack0 != nv:
         raise ValueError(f"the identity slack block must follow the {nv} "
@@ -143,7 +145,7 @@ def _assemble_packed(A_s, *, pack: int, slack0: int, n: int) -> torch.Tensor:
     A = torch.zeros((B, m, n), dtype=A_s.dtype, device=A_s.device)
     A[:, :, :nv] = A_s
     A[:, :, nv:nv + m] = torch.eye(m, dtype=A_s.dtype, device=A_s.device)
-    return A.view(B // pack, pack * m, n)
+    return A
 
 
 def solve_batches_pipelined(
@@ -156,20 +158,24 @@ def solve_batches_pipelined(
     structural_cols: int | None = None,
     sort_packs: bool = False,
 ):
-    """Solve a sequence of host-resident LP batches through K3, overlapping
-    the device solve of batch k with the upload of batch k+1 and the host's
-    f64 certification of batch k−1.  Returns one certified `BatchResult` per
-    batch.
+    """Solve a sequence of host-resident LP batches through K3, each
+    certified on the device, overlapping the device work of batch k with the
+    upload of batch k+1 and the host's finishing of batch k−1.  Returns one
+    certified `BatchResult` per batch.
 
     `batches` is a list of (A, b, c, lo, hi) numpy tuples, each with a batch
-    size divisible by `pack`.  The device only ever sees f32 copies and only
-    the combinatorial outputs (basis, vstat, status, niter) come back; the
-    f64 data stays on the host where the exact certification runs.  On a
-    card, a prefetch thread casts batch k+1 into page-locked host memory and
-    uploads it with non-blocking copies on a side stream; the launch stream
-    waits on that upload's event before K3 runs, and each batch's output
-    comes back by a non-blocking copy queued behind its kernel.  Every
-    uploaded tensor stays referenced until its batch is finalized.
+    size divisible by `pack`.  Each batch goes to the device in f64; there
+    K3 takes it cast to f32 (round to nearest even, numpy's `astype` bits),
+    and the f64 certificate of every lane (`ops/kernels/certify.py`) runs on
+    the same stream behind K3, so only (basis, vstat, status, niter, obj,
+    verified, x) come back, in one copy.  On a card, a prefetch thread
+    copies batch k+1 into page-locked host memory and uploads it with
+    non-blocking copies on a side stream; the launch stream waits on that
+    upload's event before K3 runs, and each batch's results come back by a
+    non-blocking copy queued behind its certificate.  Every uploaded tensor
+    stays referenced until its batch is finalized.  The lanes whose basis
+    fails the certificate are re-solved on the host by HiGHS
+    (`resolve_unverified_host`).
 
     `structural_cols=nv` declares that columns [nv, nv+m) of A are the
     identity slack block (true of every canonicalized LP and of
@@ -181,10 +187,13 @@ def solve_batches_pipelined(
     idle less on stragglers; results are un-permuted before returning.
 
     Stage timers (`utils.profiling`): `batch_prep_s` (the prefetch thread's
-    cast and enqueue), `batch_wait_s` (the host blocked on a batch's
-    output), `batch_verify_s`, `batch_resolve_s` and the counter
-    `batch_resolved` (HiGHS re-solves); on a card also the device times
-    `batch_upload_dev_s` and `batch_kernel_dev_s` from CUDA events.
+    copy into pinned memory and enqueue), `batch_wait_s` (the host blocked on
+    a batch's results), `batch_verify_s` (the certificate's call on the host
+    clock: on a card its checks and enqueue only, on the CPU the whole plain
+    version), `batch_resolve_s` and the counter `batch_resolved` (HiGHS
+    re-solves); on a card also the device times `batch_upload_dev_s`,
+    `batch_kernel_dev_s` (the f32 cast, the assembly and K3) and
+    `batch_verify_dev_s` (the certificate) from CUDA events.
     """
     dev = torch.device(device)
     on_card = dev.type == "cuda"
@@ -192,24 +201,19 @@ def solve_batches_pipelined(
     event = lambda: torch.cuda.Event(enable_timing=True)
 
     def prep(batch):
-        """Host f32 cast and upload of one batch (on the prefetch thread)."""
+        """The f64 copy into pinned memory and the upload of one batch (on
+        the prefetch thread)."""
         t0 = time.perf_counter()
         A, b, c, lo, hi = batch
         B, m, n = A.shape
         if B % pack != 0:
             raise ValueError(f"batch {B} not divisible by pack {pack}")
-        P = B // pack
         order = None
         if sort_packs:
             order = sort_for_packing(difficulty_scores(A, b, c, lo, hi, slack0=slack0))
             A, b, c, lo, hi = A[order], b[order], c[order], lo[order], hi[order]
-        if structural_cols is not None:
-            A_in = (A[:, :, :structural_cols], (B, m, structural_cols))
-        else:
-            A_in = (A, (P, pack * m, n))
-        host = [_host_f32(x, shape, on_card) for x, shape in (
-            A_in, (b, (P, pack, m)), (c, (P, pack, n)), (lo, (P, pack, n)),
-            (hi, (P, pack, n)))]
+        A_in = A if structural_cols is None else A[:, :, :structural_cols]
+        host = [_host_f64(x, on_card) for x in (A_in, b, c, lo, hi)]
         up = None
         if on_card:
             up = (event(), event())
@@ -226,49 +230,56 @@ def solve_batches_pipelined(
         A, b, c, lo, hi = batch
         B, m, n = A.shape
         s0 = (n - m) if slack0 is None else slack0
-        A_dev, *vecs = staged["args"]
-        run = None
+        A64, *vecs = staged["args"]
+        run = verify = None
         if on_card:
             torch.cuda.current_stream(dev).wait_event(staged["up"][1])
-            run = (event(), event())
+            run, verify = (event(), event()), (event(), event())
             run[0].record()
         if structural_cols is not None:
-            A_dev = _assemble_packed(A_dev, pack=pack, slack0=s0, n=n)
+            A64 = _assemble(A64, slack0=s0, n=n)
         out = ps.packed_kernel_call(
-            A_dev, *vecs, pack=pack, slack0=s0, max_iter=max_iter,
-            refactor_period=32, feas_tol=1e-5, opt_tol=1e-6, pivot_tol=1e-6,
-            bland_after=200,
+            *ps.packed_args(A64, *vecs, pack=pack), pack=pack, slack0=s0,
+            max_iter=max_iter, refactor_period=32, feas_tol=1e-5, opt_tol=1e-6,
+            pivot_tol=1e-6, bland_after=200,
         )
+        t0 = time.perf_counter()
         if on_card:
             run[1].record()
-            rows = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            rows.copy_(out, non_blocking=True)
+            verify[0].record()
+        packed = certify.certify_out(out, A64, *vecs)
+        profiling.record_stage("batch_verify_s", time.perf_counter() - t0)
+        if on_card:
+            verify[1].record()
+            res = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+            res.copy_(packed, non_blocking=True)
             done = torch.cuda.Event()
             done.record()
         else:
-            rows, done = out, None
-        staged.update(assembled=A_dev, out=out, rows=rows, done=done, run=run)
+            res, done = packed, None
+        staged.update(assembled=A64, out=out, packed=packed, res=res, done=done, run=run,
+                      verify=verify)
         return staged
 
     def finalize(batch, staged):
         A, b, c, lo, hi = batch
+        B, m, n = A.shape
         t0 = time.perf_counter()
         if staged["done"] is not None:
             staged["done"].synchronize()
-            profiling.record_stage(
-                "batch_upload_dev_s", staged["up"][0].elapsed_time(staged["up"][1]) / 1e3)
-            profiling.record_stage(
-                "batch_kernel_dev_s", staged["run"][0].elapsed_time(staged["run"][1]) / 1e3)
+            for name, (start, stop) in (("batch_upload_dev_s", staged["up"]),
+                                        ("batch_kernel_dev_s", staged["run"]),
+                                        ("batch_verify_dev_s", staged["verify"])):
+                profiling.record_stage(name, start.elapsed_time(stop) / 1e3)
         profiling.record_stage("batch_wait_s", time.perf_counter() - t0)
-        rows = staged["rows"].numpy().reshape(A.shape[0], -1)
+        buf = staged["res"].numpy()
         order = staged["order"]
         if order is not None:
-            # un-permute the sorted-pack outputs back to the caller's order
+            # un-permute the sorted-pack results back to the caller's order
             inv = np.empty_like(order)
             inv[order] = np.arange(order.size)
-            rows = rows[inv]
-        with profiling.stage("batch_verify_s"):
-            res = ps.certify_rows(rows, A, b, c, lo, hi)
+            buf = buf[inv]
+        res = BatchResult(*certify.host_fields(buf, m, n))
         with profiling.stage("batch_resolve_s"):
             profiling.bump_stage("batch_resolved", int((~res.verified).sum()))
             return resolve_unverified_host(res, A, b, c, lo, hi)
@@ -283,7 +294,7 @@ def solve_batches_pipelined(
                 fut = pool.submit(prep, batches[k + 1])  # overlap the next upload
             staged = launch(staged, batch)  # asynchronous on a card
             if prev is not None:
-                results.append(finalize(*prev))  # host certify overlaps the solve
+                results.append(finalize(*prev))  # the host's tail overlaps the device
             prev = (batch, staged)
         results.append(finalize(*prev))
     return results

@@ -27,9 +27,10 @@ components shaped by how the pack-k megakernel executes:
 
 Both entry points keep the certification contract of the batched drivers
 (`parallel.batched.resolve_unverified_host`): f32 kernel iterate, exact f64
-host verification of every lane, scipy-HiGHS re-solve of the rare uncertified
-lanes — callers always get exact, certified answers in the ORIGINAL input
-order and column layout.
+verification of every lane on the kernel's device (`ops/kernels/certify.py`),
+scipy-HiGHS re-solve on the host of the rare uncertified lanes — callers
+always get exact, certified answers in the ORIGINAL input order and column
+layout.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ def _split_slack(A, b, c, lo, hi, slack0):
     """Structural column count for layout [structural | identity slack | pad].
 
     Padding columns beyond slack0+m (inert FIXED [0,0] columns, e.g. from
-    `_assemble_packed`'s lane alignment) are accepted when `slack0` is given
+    `batched._assemble`'s padding to n) are accepted when `slack0` is given
     explicitly; with slack0=None the layout must be exactly [structural |
     slack] (nothing to infer the pad width from).
     """
@@ -279,8 +280,8 @@ def solve_heterogeneous(
     dropped), and returned as `LPResult`s in the ORIGINAL order and each LP's
     own column layout.
 
-    Every result is certified: f64 host verification of the kernel basis,
-    exact scipy-HiGHS re-solve of any uncertified lane.
+    Every result is certified: f64 verification of the kernel basis on
+    `device`, exact scipy-HiGHS re-solve of any uncertified lane.
     """
     from scipy.optimize import linprog
 

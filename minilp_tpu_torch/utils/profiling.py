@@ -33,9 +33,10 @@ def bump_stage(name: str, count: int = 1) -> None:
     _stages[name] = _stages.get(name, 0) + count
 
 
-def stages() -> dict[str, float]:
-    """Snapshot of the accumulated stage walls (seconds) and counters."""
-    return {k: (round(v, 3) if isinstance(v, float) else v)
+def stages(ndigits: int | None = 3) -> dict[str, float]:
+    """Snapshot of the accumulated stage walls (seconds, rounded to
+    `ndigits`, or unrounded for None) and counters."""
+    return {k: (round(v, ndigits) if isinstance(v, float) and ndigits is not None else v)
             for k, v in _stages.items()}
 
 

@@ -192,7 +192,7 @@ def test_line_keys_are_a_superset_of_bench_py(small_line):
             assert per_tag <= set(entry), (key, tag, sorted(per_tag - set(entry)))
     assert (line["backend"], line["device"]) == ("cpu", "cpu")
     assert line["launches"] == {"batched_simplex": 0, "streaming_simplex": 0,
-                                "packed_simplex": 0}
+                                "packed_simplex": 0, "certify_f64": 0}
     assert "error" not in json.dumps(line) and None not in _leaves(line)
 
 
@@ -202,6 +202,31 @@ def _leaves(x):
     if isinstance(x, list):
         return [v for item in x for v in _leaves(item)]
     return [x]
+
+
+def test_batched_line_carries_its_stages(small_line):
+    """The batched line's `batch_stages`: the pipeline's host stages over
+    the median repetition (2 batches of 64 here, none re-solved); the
+    device stages come from CUDA events, so the CPU line has none, and
+    `chip_smoke.check_bench_line` (phase 9) refuses it for that."""
+    line, _ = small_line
+    stages = line["batch_stages"]
+    host = {"batch_prep_s", "batch_wait_s", "batch_verify_s", "batch_resolve_s"}
+    assert set(stages) == host | {"batch_resolved"}
+    assert stages["batch_resolved"] == 0 and all(stages[k] >= 0.0 for k in host)
+    assert stages["batch_verify_s"] > 0.0  # the plain certificate, whole, on the CPU
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    check = lambda ln: chip_smoke.check_bench_line(
+        ln, "cpu", line["streaming_pivot_rate"]["pivots"], n_lps=128,
+        maros_obj=line["netlib_shape_maros_r7"]["objective"])
+    with pytest.raises(AssertionError, match="the batched line's stages"):
+        check(line)
+    # with the device stages and a launch of each kernel, every check holds
+    check(dict(line, batch_stages=dict(stages, batch_upload_dev_s=0.001,
+                                       batch_kernel_dev_s=0.002, batch_verify_dev_s=0.0001),
+               launches={name: 1 for name in line["launches"]}))
 
 
 def test_small_line_is_certified(small_line):

@@ -19,6 +19,7 @@ from minilp_tpu_torch import (ComparisonOp, Infeasible, LinearExpr, Optimization
                               Problem, SolverOptions, Variable)
 from minilp_tpu_torch.canonical import canonicalize
 from minilp_tpu_torch.ops.kernels import batched_simplex as bs
+from minilp_tpu_torch.ops.kernels import certify
 from minilp_tpu_torch.ops.kernels import packed_simplex as ps
 from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
 from minilp_tpu_torch.parallel import batched, scheduling
@@ -351,7 +352,8 @@ def _k3_kernel_and_plain(cuda, A, b, c, lo, hi, slack0, pack):
     torch.cuda.synchronize()
     assert ps.launches == before + 2  # the plain version is no launch
     assert torch.equal(outs[0], outs[1])  # no read of uninitialised scratch
-    got, want = (ps.certify_rows(o.cpu().numpy(), A, b, c, lo, hi) for o in (outs[0], outs[2]))
+    got, want = (bs.verify_rows_f64(o.cpu().numpy(), A, b, c, lo, hi)
+                 for o in (outs[0], outs[2]))
     np.testing.assert_array_equal(got.status, want.status)
     np.testing.assert_array_equal(got.verified, want.verified)
     assert got.verified.all()
@@ -433,9 +435,10 @@ def test_k3_layouts_bit_identical(cuda, case):
 
 def test_pipelined_goes_through_k3(cuda):
     batches = [random_batch(40 + k, 16, 12, 36) for k in range(2)]
-    before = ps.launches
+    before, cert0 = ps.launches, certify.launches
     got = batched.solve_batches_pipelined(batches, device=cuda, pack=8, structural_cols=36)
     assert ps.launches == before + 2
+    assert certify.launches == cert0 + 2  # one certificate a batch, on the card
     want = batched.solve_batches_pipelined(batches, device="cpu", pack=8)
     for g, w in zip(got, want):
         assert g.verified.all()
@@ -486,3 +489,108 @@ def test_crossover_runs_its_device_stage_on_the_card(cuda, tmp_path, monkeypatch
     cpu = netlib_shaped_problem(60, 150, 0.08, seed=4)
     cpu.options = SolverOptions(device="cpu", use_megakernel="never")
     assert abs(sol.objective() - cpu.solve().objective()) <= 1e-9 * (1 + abs(sol.objective()))
+
+
+# ---- the f64 certificate of the batch entry points ----------------------------
+
+def _certificate_inputs(cuda, singular_lane=None):
+    """K1's rows on 16 of the bench's 16 x 40 LPs, with the f64 batch, on
+    the card; `singular_lane` gets a zero basic column."""
+    lp = [np.array(v) for v in random_batch(7, 16, 16, 24)]
+    data = bs.upload(cuda, *lp)
+    rows = bs.megakernel_rows(*data, slack0=24, **KW)
+    ints = [rows[:, :16].contiguous(), rows[:, 16:56].contiguous(), rows[:, 56].contiguous()]
+    if singular_lane is not None:
+        data[0][singular_lane, :, int(ints[0][singular_lane, 0])] = 0.0
+    return (*data, *ints)
+
+
+def _same_certificate(got, want, rel=1e-12):
+    (obj, ver, x), (w_obj, w_ver, w_x) = ([t.cpu().numpy() for t in r] for r in (got, want))
+    np.testing.assert_array_equal(ver, w_ver)
+    assert np.all(np.abs(obj - w_obj) <= rel * np.maximum(1.0, np.abs(w_obj)))
+    assert np.all(np.abs(x - w_x) <= rel * np.maximum(1.0, np.abs(w_x)))
+
+
+def test_certificate_kernel_matches_plain(cuda):
+    args = _certificate_inputs(cuda)
+    before = certify.launches
+    got = certify.certify_kernel_call(*args)
+    want = certify.certify_plain(*args)
+    torch.cuda.synchronize()
+    assert certify.launches == before + 1  # the plain version is no launch
+    _same_certificate(got, want)
+    assert got[1].all() and got[1].dtype == torch.bool
+    host = bs._verify_f64(*(t.cpu().numpy() for t in args))
+    _same_certificate(got, [torch.as_tensor(np.asarray(v)) for v in host])
+
+
+def test_certificate_layouts_bit_identical(cuda):
+    """The shared-memory and global layouts, and a second run, give the
+    same bits; "shared" is the default at this shape."""
+    args = _certificate_inputs(cuda)
+    assert certify.pick_layout(16, 40) == "shared"
+    default = certify.certify_kernel_call(*args)
+    for again in (certify.certify_kernel_call(*args, layout="global"),
+                  certify.certify_kernel_call(*args)):
+        assert all(torch.equal(u, v) for u, v in zip(default, again))
+    assert certify.pick_layout(200, 400) == "global"
+    with pytest.raises(ValueError, match="does not fit"):
+        certify.pick_layout(200, 400, "shared")
+
+
+def test_certificate_fails_a_singular_lane_alone(cuda):
+    """The recorded deviation: lane 3's basis is exactly singular; the
+    kernel and the plain version fail lane 3 alone, where the host's
+    batched solve fails every lane."""
+    args = _certificate_inputs(cuda, singular_lane=3)
+    got, want = certify.certify_kernel_call(*args), certify.certify_plain(*args)
+    _same_certificate(got, want)
+    assert got[1].cpu().tolist() == [i != 3 for i in range(16)]
+    host = bs._verify_f64(*(t.cpu().numpy() for t in args))
+    assert not np.asarray(host[1]).any()
+
+
+def test_certificate_wrapper_raises_on_what_it_does_not_take(cuda):
+    args = list(_certificate_inputs(cuda))
+    bad = list(args)
+    bad[0] = args[0].float()
+    with pytest.raises(ValueError, match="float64"):
+        certify.certify_kernel_call(*bad)
+    bad = list(args)
+    bad[1] = args[1].cpu()
+    with pytest.raises(ValueError, match="is on cpu"):
+        certify.certify_kernel_call(*bad)
+    with pytest.raises(ValueError, match="layout"):
+        certify.certify_kernel_call(*args, layout="staged")
+
+
+def test_device_f32_cast_is_numpys(cuda):
+    """K1's and K3's f32 inputs are cast on the card from the f64 upload:
+    the bits of numpy's `astype(np.float32)`, half-ulp ties and subnormals
+    included."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(4096) * 10.0 ** rng.integers(-40, 39, 4096)
+    ulp = np.spacing(np.float32(1.0)).astype(np.float64)
+    ties = np.array([1 + ulp / 2, 1 + 3 * ulp / 2, -(1 + ulp / 2), 2.0 ** -149 * 1.5,
+                     2.0 ** -149 * 2.5, 2.0 ** -150, 2.0 ** -151, 1e-45, 1e-39, -1e-42,
+                     np.inf, -np.inf, 0.0, -0.0])
+    x = np.concatenate([x, ties])
+    got = bs.upload(cuda, x)[0].to(torch.float32).cpu().numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), x.astype(np.float32).view(np.uint32))
+
+
+def test_batch_entry_points_certify_on_the_card(cuda, monkeypatch):
+    """K1's and K3's batch entry points take the device certificate, never
+    the host's `_verify_f64`."""
+    def host_check(*args):
+        raise AssertionError("a batch entry point called the host's _verify_f64")
+
+    monkeypatch.setattr(bs, "_verify_f64", host_check)
+    A, b, c, lo, hi = random_batch(8, 16, 12, 36)
+    before = certify.launches
+    for res in (bs.solve_batch_megakernel(A, b, c, lo, hi, device=cuda),
+                ps.solve_batch_packed(A, b, c, lo, hi, device=cuda, pack=8),
+                batched.solve_batch_certified(A, b, c, lo, hi, device=cuda)):
+        assert res.verified.all()
+    assert certify.launches == before + 3
