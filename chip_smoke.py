@@ -9,9 +9,9 @@ nothing of JAX or of the JAX package.  Phases, each of which raises on
 failure (exit code 1; no result line is printed then):
 
 1. the card, its power limit, torch's CUDA version and `nvcc --version`;
-2. the build of every kernel from `csrc/` (K1, K2, K3 and the f64
-   certificate, one `nvcc` each, started together), with what ptxas
-   reports;
+2. the build of every kernel from `csrc/` (K1, K2, K3, the batches' f64
+   certificate and the basis kernel, one `nvcc` each, started together),
+   with what ptxas reports;
 3. K1 against its plain torch version on the card, on the same inputs: a
    batch of 64 random 32×128 LPs, the two `single_lp` instances of
    `bench.py` canonicalized (padded (256, 1024) and (504, 2048)) cold, and
@@ -62,7 +62,30 @@ failure (exit code 1; no result line is printed then):
    record, K2 launched, a certified solution within 1e-6 relative of HiGHS,
    and the pivots of the parent kernel (13974 and 11322).
    The route the port took before K2 (`use_streaming="never"`: the f64
-   torch engine on the card) is timed once on the 25fv47 shape;
+   torch engine on the card) is timed once on the 25fv47 shape.
+   On every card route of phases 4, 4b, 6, 7a, 8a and 9 the final basis is
+   certified on the card: the basis kernel (`csrc/basis_f64.cu`) is
+   launched at least once on each, and the port's host factorizations of
+   a final basis (`_verify_f64`, `hostlp.factorize_basis`, `np.linalg.inv`
+   and `np.linalg.solve` called from the package) count zero
+   (`route_counted`; phase 9's through `bench_counted`);
+4c. (run after 7a, on the bases phases 4, 4b, 6c and 7a ended on) the
+   basis kernel, which replaces the host's f64 check, state rebuild and
+   B⁻¹ of a single LP, against its plain torch version on the card and the
+   host's check on the main path's own final bases: 512x2048 (K1), 25fv47
+   and fit1p (K2), the 1240-row basis after phase 6c's cuts, and maros
+   (3136 rows, the crossover).  Required: the flags (certified, verified,
+   singular) of the plain version, of the driver's host `certify` and of
+   `_verify_f64`; obj within 1e-12 of the plain version and `_verify_f64`
+   and within 1e-12 (dense LU, M < 1024) or 1e-10 (SuperLU) of the
+   host's `certify`, x within 1e-9 · max(1, |x|); the default grid, one
+   block, a second run and the launch with B⁻¹ bit for bit, and the launch
+   of B⁻¹'s middle row alone (`row`, a Gomory cut's read) bit for bit that
+   row of the whole; |B⁻¹B − I| within max(1e-10, 10 × the plain
+   version's).  Logged: the kernel's ms (least of 3), one block's, with
+   B⁻¹, with one row of it, the plain version's, the library
+   calls' (A·x_N, `lu_factor_ex`, two `lu_solve`, Aᵀy), the host's
+   `certify`, beside the bound;
 5b. the batched path's f64 certificate (`csrc/certify_f64.cu`, which
    replaces the host's numpy `_verify_f64`) against its plain torch version
    on the card, on the same device inputs, and both against the host's
@@ -123,8 +146,8 @@ failure (exit code 1; no result line is printed then):
    with the default options.  Required: only the `cold_solve_crossover`
    record, the device stage run on the card, a certified solution, the
    objective within 1e-9 relative of the reference's certified
-   −4686.208519614669 and within 1e-6 of HiGHS (run once, after the
-   solve), and the hand-off the solve took (the host stage's launches and
+   −4686.208519614669 and within 1e-6 of HiGHS (run once, on the CPU in
+   a subprocess started beside phase 1, `start_maros_highs`), and the hand-off the solve took (the host stage's launches and
    timer) the one the rule gives on the last chunk's f64 KKT.  It logs the
    stages, each device chunk (operator, iterations, wall, the host's f64
    KKT), the hand-off, each phase's iterations per second, and one f32 PDHG iteration's ms by
@@ -178,18 +201,23 @@ failure (exit code 1; no result line is printed then):
    pivots; both routes at least one node; the maros line certified within
    1e-9 of the reference's objective; the PDHG line's KKT and gap finite,
    and `over_budget_s` present; the card in `device`; K1, K2, K3 and the
-   certificate launched during the run (its `launches`); and the batched
-   line's `batch_stages`, the device ones included.
+   certificate and the basis kernel launched during the run (its
+   `launches`); and the batched
+   line's `batch_stages`, the device ones included, and the basis
+   kernel's device stage `basis_dev_s` in the 25fv47 and maros
+   breakdowns.
 
 It prints the kernel table as one JSON line (each kernel's launches on its
 main paths, by path in `launches_by_path`: K1's and K2's cold solves of
 phases 4 and 4b and warm re-solves of phase 6, K3's and the certificate's
-batched path, the certificate's launch on the examples' path, the bench's
-launches of each; its time and its plain version's at the stated shape,
-the library calls' for the certificate, and the bound of that run: the
+batched path, the certificate's launch on the examples' path, the basis
+kernel's on each single-LP route, the bench's launches of each; its time
+and its plain version's at the stated shape (the basis kernel's at the
+25fv47 basis, with each basis of phase 4c in `by_basis`), the library
+calls' for the two certificates, and the bound of that run: the
 larger of its bytes over the card's memory rate and its floating-point
 operations, counted from the run's pivots, over the f32 peak, or the
-certificate's f64 operations over the FP64 tensor-core peak), the card's
+certificates' f64 operations over the FP64 tensor-core peak), the card's
 name and power limit as `nvidia-smi` gives them, and,
 last, `{"ok": true, "device": {...}}`.
 Without a CUDA device, or without the package beside it, it exits nonzero.
@@ -250,17 +278,32 @@ MAROS_OBJ = -4686.208519614669
 #: engine="pdhg" at 1e-6 as tests/test_large.py runs it (`PDHG`)
 PDHG_KW = dict(engine="pdhg", feas_tol=1e-6, pdhg_max_iter=600_000)
 PDHG_WALL_S = 60.0  # phase 7(c)'s wall bound
-#: phase 9: the bench as a user runs it, and its time limit
-BENCH_CMD = (sys.executable, "-m", "minilp_tpu_torch.bench")
+#: what phase 7(a) waits at most for HiGHS on the maros-r7 shape, beyond
+#: the phases before it
+HIGHS_TIMEOUT_S = 600.0
+#: phase 9: the bench as a user runs it (`python3 -m minilp_tpu_torch.bench`),
+#: under `bench_counted`, which counts the host's factorizations of a final
+#: basis in it; and its time limit
+BENCH_CMD = (sys.executable, "-c", "import chip_smoke; chip_smoke.bench_counted()")
 BENCH_TIMEOUT_S = 480.0
+#: the line `bench_counted` writes to the standard error after the bench
+HOST_CHECKS_TAG = "host factorizations of a final basis: "
 #: the kernels whose launches the bench's line counts, and the batched
 #: line's stages (`solve_batches_pipelined`) on a card
-BENCH_KERNELS = ("batched_simplex", "streaming_simplex", "packed_simplex", "certify_f64")
+BENCH_KERNELS = ("batched_simplex", "streaming_simplex", "packed_simplex", "certify_f64",
+                 "basis_f64")
 BATCH_STAGES = ("batch_prep_s", "batch_wait_s", "batch_verify_s", "batch_verify_dev_s",
                 "batch_resolve_s", "batch_resolved", "batch_upload_dev_s", "batch_kernel_dev_s")
 
 
+_T0 = time.perf_counter()
+
+
 def log(*args) -> None:
+    """Print a line; a phase's header (a line that opens with "[") ends
+    with the seconds since the script started."""
+    if args and str(args[0]).startswith("["):
+        args = (*args, f"(at {time.perf_counter() - _T0:.1f} s)")
     print(*args, flush=True)
 
 
@@ -351,21 +394,53 @@ def certify_bound(B, m, n):
 
 @contextlib.contextmanager
 def host_checks_counted():
-    """Count the calls of the host's `_verify_f64` (the single-LP routes'
-    certificate) while the block runs: a list whose length is the count."""
+    """Count the host factorizations of a final basis that the port's code
+    makes while the block runs: its calls of the host's `_verify_f64` (the
+    single-LP routes' check on a CPU solve), `hostlp.factorize_basis`,
+    `np.linalg.inv` and `np.linalg.solve` (the driver's host check, state
+    rebuild and B⁻¹; calls from outside the package, such as HiGHS's, are
+    not counted).  Yields a list of the names called."""
+    from minilp_tpu_torch.engine import hostlp
     from minilp_tpu_torch.ops.kernels import batched_simplex as bs
+    from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
 
-    saved, calls = bs._verify_f64, []
+    calls = []
+    targets = [(bs, "_verify_f64"), (ss, "_verify_f64"), (hostlp, "factorize_basis"),
+               (np.linalg, "inv"), (np.linalg, "solve")]
+    saved = [getattr(mod, name) for mod, name in targets]
 
-    def counted(*args):
-        calls.append(args[0].shape)
-        return saved(*args)
+    def counted(name, fn):
+        def call(*args, **kw):
+            if "minilp_tpu_torch" in sys._getframe(1).f_code.co_filename:
+                calls.append(name)
+            return fn(*args, **kw)
+        return call
 
-    bs._verify_f64 = counted
+    for (mod, name), fn in zip(targets, saved):
+        setattr(mod, name, counted(name, fn))
     try:
         yield calls
     finally:
-        bs._verify_f64 = saved
+        for (mod, name), fn in zip(targets, saved):
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def route_counted(tag):
+    """A single-LP route on the card: the basis kernel's launches in the
+    block (`basis_f64.launches`, reset on entry) must be some, and the
+    port's host factorizations of a final basis none.  Yields a dict whose
+    "launches" the exit fills in."""
+    from minilp_tpu_torch.ops.kernels import basis_f64
+
+    basis_f64.launches = 0
+    out = {}
+    with host_checks_counted() as host:
+        yield out
+    out["launches"] = basis_f64.launches
+    if host or basis_f64.launches <= 0:
+        raise AssertionError(f"{tag}: the basis kernel launched {basis_f64.launches} times, "
+                             f"host factorizations of a final basis {host}")
 
 
 def streaming_bound(m, n, majors, refreshes, minor_k=16):
@@ -862,10 +937,16 @@ def build_all(build, names):
                 log("    ptxas: " + line.strip())
 
 
+#: the final bases of the main path's solves (tag -> the handle), which
+#: phase 4c holds the basis kernel to
+FINAL_BASES = {}
+
+
 def solve_main_path(tag, make, want, event, rec_path, reps=2, ref=None):
     """`Problem.solve()` of fresh copies: the record, certificate and HiGHS
     gap of each, and the gap to the reference's certified objective `ref`
-    where given; returns the cold solve's (walls, stages, pivots)."""
+    where given; returns the cold solve's (walls, stages, pivots) and keeps
+    its handle in `FINAL_BASES`."""
     import torch
     from minilp_tpu_torch.utils import profiling
 
@@ -892,6 +973,7 @@ def solve_main_path(tag, make, want, event, rec_path, reps=2, ref=None):
             raise AssertionError(f"{tag}: objective {got!r} vs HiGHS {want!r}")
         if ref is not None and abs(got - ref) > REL_REF * (1.0 + abs(ref)):
             raise AssertionError(f"{tag}: objective {got!r} vs the reference's {ref!r}")
+    FINAL_BASES[tag] = sols[0]._engine
     log(f"  {tag}: objective={sols[0].objective()!r} highs={want!r} "
         f"pivots={sols[0]._engine.iterations()} "
         f"walls_s={[round(w, 3) for w in walls]} "
@@ -1106,6 +1188,144 @@ def library_certificate_ms(torch, A, b, c, lo, hi, basis, vstat, status):
     return min(timed(torch, run)[1] for _ in range(3))
 
 
+#: phase 4c: the main path's final bases the basis kernel is held to (tag ->
+#: the `FINAL_BASES` key); obj within REL_BASIS of the host's on its dense
+#: branch (False) and its SuperLU branch (True, M >= 1024), x within
+#: REL_BASIS_X, both · max(1, |reference|)
+BASIS_CASES = {"512x2048": "single_lp_512x2048", "25fv47": "25fv47", "fit1p": "fit1p",
+               "25fv47_after_cuts": "c_streaming_25fv47_final", "maros": "maros"}
+REL_BASIS = {False: 1e-12, True: 1e-10}
+REL_BASIS_X = 1e-9
+
+
+def basis_bound(m, n):
+    """The basis kernel's bound on one LP of m x n: the larger of its bytes
+    (A, b, c, lo, hi read once in f64, the basis and vstat in int32, x, d,
+    x_B, y and the scalars written once) over the memory rate and its f64
+    operations (the LU, 2m³/3; two triangular solves each way, 4m²; A·x_N
+    and Aᵀy, 4mn) over `F64_FLOPS`."""
+    nbytes = 8 * (m * n + m + 3 * n) + 4 * (m + n) + 8 * (2 * n + 2 * m + 5)
+    flops = 2 * m ** 3 / 3 + 4 * m * m + 4 * m * n
+    t_ops, t_bytes = flops / F64_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def library_basis_ms(torch, A, b, c, lo, hi, basis, vstat):
+    """The least of 3 CUDA-event times of PyTorch's own calls for the basis
+    kernel's linear algebra on the same inputs: A·x_N, `lu_factor_ex` of
+    B, two `lu_solve` (B x_B = rhs, Bᵀy = c_B) and Aᵀy (the gathers and
+    the checks are not counted)."""
+    from minilp_tpu_torch.status import VarStat
+
+    idx = basis.long()
+    B = A[:, idx].contiguous()
+    at_lo = (vstat == int(VarStat.AT_LOWER)) | (vstat == int(VarStat.FIXED))
+    xN = torch.where(at_lo, lo, torch.where(vstat == int(VarStat.AT_UPPER), hi, 0.0))
+    cB = c[idx][:, None]
+
+    def run():
+        rhs = (b - A @ xN)[:, None]
+        LU, piv, _info = torch.linalg.lu_factor_ex(B)
+        xB = torch.linalg.lu_solve(LU, piv, rhs)
+        y = torch.linalg.lu_solve(LU, piv, cB, adjoint=True)
+        return xB, c - A.T @ y[:, 0]
+
+    run()
+    return min(timed(torch, run)[1] for _ in range(3))
+
+
+def compare_basis(torch, cases=BASIS_CASES):
+    """Phase 4c: the basis kernel against `basis_plain` on the card and
+    against the host's check, on the main path's own final bases (module
+    docstring); returns each case's figures."""
+    from minilp_tpu_torch import SolverOptions
+    from minilp_tpu_torch.engine import driver
+    from minilp_tpu_torch.ops.kernels import basis_f64
+    from minilp_tpu_torch.ops.kernels import batched_simplex as bs
+    from minilp_tpu_torch.status import Status
+
+    log("[4c] the basis kernel (CUDA) vs plain torch and the host's check, on the main "
+        "path's final bases")
+    dev = torch.device(DEVICE)
+    figures = {}
+    for tag, key in cases.items():
+        handle = FINAL_BASES[key]
+        can, st = handle.can, handle._state
+        m, n = can.M, can.N
+        basis, vstat = np.asarray(st.basis), np.asarray(st.vstat).astype(np.int32)
+        put = lambda v, dt: torch.as_tensor(np.ascontiguousarray(v, dtype=dt), device=dev)
+        args = ([put(v, np.float64) for v in (can.A, can.b, can.c, can.lo, can.hi)]
+                + [put(basis, np.int32), put(vstat, np.int32)])
+        call = lambda **kw: basis_f64.basis_kernel_call(*args, int(Status.OPTIMAL), **kw)
+        first = call()  # also loads the kernel
+        ms = min(timed(torch, call)[1] for _ in range(3))
+        again = call()
+        one, ms_one = timed(torch, lambda: call(blocks=1))
+        inv, ms_inv = timed(torch, lambda: call(inverse=True))
+        k = m // 2
+        one_row, ms_row = timed(torch, lambda: call(row=k))
+        bits = lambda t: t.view(torch.int64)
+        size = basis_f64.packed_size(m, n)
+        for name, other in (("a second run", again), ("one block", one),
+                            ("the launch with B⁻¹", inv[:size]),
+                            ("the launch with one row of B⁻¹", one_row[:size])):
+            if not torch.equal(bits(first), bits(other)):
+                raise AssertionError(f"{tag}: the certificate differs on {name}")
+        if not torch.equal(bits(one_row[size:]), bits(inv[size + k * m:size + (k + 1) * m])):
+            raise AssertionError(f"{tag}: row {k} of B⁻¹ alone differs from the whole's")
+        plain_call = lambda **kw: basis_f64.basis_plain(*args, int(Status.OPTIMAL), **kw)
+        plain_call()  # the first call of torch's LU loads it
+        plain, ms_p = timed(torch, plain_call)
+        plain_inv = plain_call(inverse=True)
+        lib_ms = library_basis_ms(torch, *args)
+        # the host's check of the same basis: the driver's host route
+        # (numpy's LU below 1024 rows, SuperLU above) and `_verify_f64`
+        host = driver.EngineHandle(can, st._replace(Binv=np.zeros((0, 0))), handle.problem,
+                                   SolverOptions(device="cpu"))
+        t0 = time.perf_counter()
+        certified = host._certify_timed()
+        ms_h = (time.perf_counter() - t0) * 1e3
+        with np.errstate(invalid="ignore"):
+            oh, vh, xh = bs._verify_f64(*(v[None] for v in (can.A, can.b, can.c, can.lo,
+                                                            can.hi, basis, vstat)),
+                                        np.array([int(Status.OPTIMAL)]))
+        ck, cp = (basis_f64.unpack(t.cpu().numpy(), m, n) for t in (first, plain))
+        flags = lambda c: (c.pfeas and c.dfeas, c.verified, c.singular)
+        if flags(ck) != flags(cp) or flags(ck) != (certified, bool(vh[0]), False):
+            raise AssertionError(f"{tag}: flags (certified, verified, singular) kernel "
+                                 f"{flags(ck)}, plain {flags(cp)}, host "
+                                 f"{(certified, bool(vh[0]))}")
+        rel = REL_BASIS[m >= driver._SPARSE_HOST_M]
+        refs = [("plain", cp.obj, cp.x, REL_BASIS[False]),
+                ("the host's _verify_f64", oh[0], xh[0], REL_BASIS[False])]
+        if certified:  # the host's certify serves its values only then
+            refs.append(("the host's certify", host._exact_obj, host._x_cache, rel))
+        for name, obj, x, tol in refs:
+            if not (cert_close(ck.obj, obj, tol).all() and cert_close(ck.x, x, REL_BASIS_X).all()):
+                raise AssertionError(f"{tag}: the kernel and {name} differ: obj {ck.obj!r} vs "
+                                     f"{obj!r}, x by {np.abs(ck.x - x).max():.3e}")
+        B = args[0][:, args[5].long()]
+        eye = torch.eye(m, dtype=torch.float64, device=dev)
+        off = lambda packed: float((packed[size:].view(m, m) @ B - eye).abs().max())
+        eye_k, eye_p = off(inv), off(plain_inv)
+        if not eye_k <= max(1e-10, 10 * eye_p):
+            raise AssertionError(f"{tag}: |B⁻¹B - I| {eye_k:.3e} (plain {eye_p:.3e})")
+        err = max(abs(ck.obj - cp.obj), float(np.abs(ck.x - cp.x).max()))
+        bnd = basis_bound(m, n)
+        figures[tag] = dict(m=m, n=n, ms=ms, one_block_ms=ms_one, inverse_ms=ms_inv,
+                            row_ms=ms_row, plain_ms=ms_p, host_ms=ms_h, library_ms=lib_ms, bound=bnd,
+                            max_abs_err=err)
+        log(f"  {tag} ({key}, {m}x{n}): flags (certified, verified, singular) {flags(ck)} as "
+            f"plain's and the host's; bit-identical on a second run, on one block, with "
+            f"B⁻¹ and with its row {k} alone (as the whole's); max_abs_err vs plain={err:.3e}; |B⁻¹B - I| {eye_k:.3e} (plain "
+            f"{eye_p:.3e}); grid of {basis_f64.default_blocks(dev, m)} blocks: "
+            f"kernel_ms={ms:.3f} one_block_ms={ms_one:.1f} with_inverse_ms={ms_inv:.3f} "
+            f"with_row_ms={ms_row:.3f} "
+            f"plain_ms={ms_p:.3f} library_ms={lib_ms:.3f} host_ms={ms_h:.1f} "
+            f"bound_ms={bnd[0]:.4f} ({bnd[1]})")
+    return figures
+
+
 def batched_main_path(torch, batch=BATCH):
     """Phase 5: `solve_batches_pipelined` as bench.py's batched line runs it,
     then `solve_heterogeneous` on a mixed list (K3's launches counted over
@@ -1192,8 +1412,7 @@ def batched_main_path(torch, batch=BATCH):
     log(f"  solve_batch_certified (K1, batch {batch}): wall_s={wall_k1:.4f} "
         f"pivots={int(cert.niter.sum())} max_rel_gap_highs_16={gap_k1:.3e}")
     if host_checks:
-        raise AssertionError(f"the batch entry points called the host's _verify_f64 on "
-                             f"{host_checks}")
+        raise AssertionError(f"the batch entry points called the host's checks {host_checks}")
     cert_launches = certify.launches
     log(f"  certificate launches on the batched path: {cert_launches}; the host's "
         f"_verify_f64 called 0 times")
@@ -1318,23 +1537,26 @@ def incremental_main_path(torch, rec_path, cmp_k1, cmp_k2, chains=CHAINS):
     from minilp_tpu_torch.utils.node_chain import highs_outcome, run_chain
 
     log("[6] incremental main path: node chains through the incremental API on the card")
-    warm = {"batched_simplex": 0, "streaming_simplex": 0}
+    warm = {"batched_simplex": 0, "streaming_simplex": 0, "basis_f64": 0}
     for tag, (shape, options, cold_event, suffix) in chains.items():
         prob = chain_problem(shape)
         prob.options = SolverOptions(device=DEVICE, **options)
         n_rec = len(rec_path.read_text().splitlines()) if rec_path.exists() else 0
-        t0 = time.perf_counter()
-        sol = prob.solve()
-        torch.cuda.synchronize()
-        cold_s = time.perf_counter() - t0
-        events = [json.loads(line)["event"]
-                  for line in rec_path.read_text().splitlines()[n_rec:]]
-        if events != [cold_event] or not sol._engine.certified:
-            raise AssertionError(f"{tag}: cold solve records {events}, "
-                                 f"certified {sol._engine.certified}")
-        k1, k2, cold_pivots = bs.launches, ss.launches, sol._engine.iterations()
-        with recording_launches() as seen:
-            nodes = run_chain(sol, log_path=rec_path, sync=torch.cuda.synchronize)
+        with route_counted(f"phase 6 {tag}") as basis:
+            t0 = time.perf_counter()
+            sol = prob.solve()
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            events = [json.loads(line)["event"]
+                      for line in rec_path.read_text().splitlines()[n_rec:]]
+            if events != [cold_event] or not sol._engine.certified:
+                raise AssertionError(f"{tag}: cold solve records {events}, "
+                                     f"certified {sol._engine.certified}")
+            k1, k2, cold_pivots = bs.launches, ss.launches, sol._engine.iterations()
+            with recording_launches() as seen:
+                nodes = run_chain(sol, log_path=rec_path, sync=torch.cuda.synchronize)
+        warm["basis_f64"] += basis["launches"]
+        FINAL_BASES[f"{tag}_final"] = sol._engine
         k1, k2 = bs.launches - k1, ss.launches - k2
         for i, node in enumerate(nodes):
             want = ("primal_resolve" if node.edit == "unfix_var" else "dual_resolve") + suffix
@@ -1380,22 +1602,47 @@ def incremental_main_path(torch, rec_path, cmp_k1, cmp_k2, chains=CHAINS):
             f"mean_pivots={mean([n.pivots for n in done]):.1f} "
             f"cuts: mean_wall_s={mean([n.wall_s for n in cuts]):.4f} "
             f"mean_pivots={mean([n.pivots for n in cuts]):.1f} "
-            f"warm launches K1={k1} K2={k2}")
+            f"warm launches K1={k1} K2={k2}; the basis kernel's {basis['launches']}, no host "
+            f"factorization of a final basis")
         if k1 + k2 < len(seen):
             raise AssertionError(f"{tag}: {len(seen)} warm kernel calls recorded, "
                                  f"{k1 + k2} launches counted")
         compare_launches(tag, seen, prob.options.effective_max_iter, cmp_k1, cmp_k2)
     log(f"  warm launches on the incremental path: K1 {warm['batched_simplex']}, "
-        f"K2 {warm['streaming_simplex']}; {smi_name_power()}")
+        f"K2 {warm['streaming_simplex']}; the basis kernel's {warm['basis_f64']}; "
+        f"{smi_name_power()}")
     return warm
 
 
 def maros_highs() -> float:
-    """HiGHS on the maros-r7 shape: phase 7(a)'s oracle, run in process
-    after the solve it checks (it takes minutes)."""
+    """HiGHS on the maros-r7 shape: phase 7(a)'s oracle (minutes on one CPU
+    core; `start_maros_highs` runs it beside the card's phases)."""
     from minilp_tpu_torch.utils.synth import netlib_shaped_problem
 
     return highs_objective(netlib_shaped_problem(*MAROS, seed=1))
+
+
+def start_maros_highs() -> subprocess.Popen:
+    """`maros_highs` in a subprocess from the checkout's root, started at
+    once so that its minutes on one CPU core pass beside the card's phases
+    (it sees no card); phase 7(a) reads its result (`maros_highs_result`),
+    and `main` stops it if it still runs."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("MINILP_TPU_LOG", None)
+    return subprocess.Popen([sys.executable, "-c",
+                             "import chip_smoke; print(repr(chip_smoke.maros_highs()))"],
+                            cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def maros_highs_result(proc: subprocess.Popen, timeout_s=HIGHS_TIMEOUT_S) -> float:
+    """The objective `start_maros_highs`' subprocess printed; raises if it
+    failed or is not done within `timeout_s` more."""
+    out, err = proc.communicate(timeout=timeout_s)
+    if proc.returncode != 0:
+        raise AssertionError(f"HiGHS on the maros-r7 shape exited {proc.returncode}: "
+                             f"{err[-4000:]}")
+    return float(out.split()[-1])
 
 
 @contextlib.contextmanager
@@ -1454,11 +1701,12 @@ def pdhg_step_ms(torch, can, windows=32):
     return (t2 - t1) / (every * windows)
 
 
-def crossover_main_path(torch, rec_path, shape=MAROS, want=MAROS_OBJ):
+def crossover_main_path(torch, rec_path, highs, shape=MAROS, want=MAROS_OBJ):
     """Phase 7(a): the maros-r7 shape written with `write_mps`, read back
     through the native parser, and `Problem.solve()` with the default
     options on the card: the crossover (device PDHG stage, identify, host
-    polish).  Returns what (c) and the PDHG step's row need."""
+    polish), checked against HiGHS (`highs`, `start_maros_highs`' process).
+    Returns what (c) and the PDHG step's row need."""
     from minilp_tpu_torch import SolverOptions
     from minilp_tpu_torch.io import mps
     from minilp_tpu_torch.utils import profiling
@@ -1479,7 +1727,7 @@ def crossover_main_path(torch, rec_path, shape=MAROS, want=MAROS_OBJ):
     prob = mp.problem
     n_rec = len(rec_path.read_text().splitlines()) if rec_path.exists() else 0
     profiling.reset_stages()
-    with recording_device_chunks() as (chunks, host):
+    with recording_device_chunks() as (chunks, host), route_counted("phase 7a") as basis:
         t0 = time.perf_counter()
         sol = prob.solve()
         torch.cuda.synchronize()
@@ -1506,8 +1754,11 @@ def crossover_main_path(torch, rec_path, shape=MAROS, want=MAROS_OBJ):
     if len(host) > 1 or bool(host) != ("crossover_pdhg_s" in stages) or branch != rule:
         raise AssertionError(f"maros: hand-off {branch} (host launches {host}, stages "
                              f"{sorted(stages)}), the rule on the f64 KKT {err_d:.3e}: {rule}")
+    FINAL_BASES["maros"] = sol._engine
     log(f"  objective={got!r} (reference {want!r}, rel {abs(got - want) / (1 + abs(want)):.3e}) "
-        f"canonical {can.M}x{can.N} wall_s={wall:.3f} polish pivots={sol._engine.iterations()}")
+        f"canonical {can.M}x{can.N} wall_s={wall:.3f} polish pivots={sol._engine.iterations()}; "
+        f"the basis kernel's launches {basis['launches']}, no host factorization of a final "
+        f"basis")
     log(f"  hand-off: device f64 KKT {err_d:.3e} (tol {tol:g}) -> {branch}")
     done = 0
     for c in chunks:
@@ -1529,12 +1780,13 @@ def crossover_main_path(torch, rec_path, shape=MAROS, want=MAROS_OBJ):
         f"by CUDA events; bound {step_bound:.4f} ms (two matvecs, {step_bytes} bytes "
         f"over {HBM_BYTES:.3g} B/s); device iterations on the path: {dev_iters}")
     t0 = time.perf_counter()
-    h = maros_highs()
-    log(f"  HiGHS {h!r}, rel {abs(got - h) / (1 + abs(h)):.3e}; it took "
-        f"{time.perf_counter() - t0:.1f} s")
+    h = maros_highs_result(highs)
+    log(f"  HiGHS {h!r}, rel {abs(got - h) / (1 + abs(h)):.3e} (in a subprocess since "
+        f"phase 1; waited {time.perf_counter() - t0:.1f} s for it here)")
     if abs(got - h) > REL_HIGHS * (1.0 + abs(h)):
         raise AssertionError(f"maros: objective {got!r} vs HiGHS {h!r}")
-    return dict(objective=got, step_ms=step_ms, step_bound_ms=step_bound, iterations=dev_iters)
+    return dict(objective=got, step_ms=step_ms, step_bound_ms=step_bound, iterations=dev_iters,
+                basis_launches=basis["launches"])
 
 
 def same_iterates(tag, card, cpu, tol):
@@ -1698,20 +1950,46 @@ def examples_main_path(torch, rec_path, cmp_k1, cmp_k2, tsp_sizes=TSP_SIZES,
     a non-Netlib name with `--expected`.  Every K1 and K2 launch of the
     path is recorded and, after the path, held against its plain version
     on the same inputs (`cmp_k1`, `cmp_k2`).  Returns K1's and K2's
-    launches on the path."""
+    launches on the path, the certificate's and the basis kernel's."""
+    from minilp_tpu_torch import SolverOptions
+    from minilp_tpu_torch.ops.kernels import batched_simplex as bs, certify
+    from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
+
+    log("[8a] the examples on the card")
+    recorded = []  # (tag, launches through the driver's routes)
+    bs.launches = ss.launches = certify.launches = 0  # counts from here on are the examples' path
+    with route_counted("phase 8a") as basis:
+        counts = _examples(torch, rec_path, recorded, tsp_sizes, scenarios, netlib, want_netlib)
+    counts["basis_f64"] = basis["launches"]
+    log(f"  the basis kernel's launches on the examples' path: {basis['launches']}, no host "
+        f"factorization of a final basis")
+
+    # every launch above against its plain version on the same inputs (K2's
+    # one-block rerun is phase 3b's check, at this shape)
+    for tag, seen in recorded:
+        if not seen:
+            raise AssertionError(f"{tag}: no kernel launch recorded")
+        compare_launches(f"examples {tag}", seen, SolverOptions().effective_max_iter,
+                         cmp_k1, cmp_k2, one_block=False)
+    for A, b, c, lo, hi, kw in counts.pop("batch_calls"):
+        m, n = A.shape[1:]
+        cmp_k1.run(f"examples scenario_batch {A.shape[0]} LPs", A, b, c, lo, hi,
+                   slack0=kw.get("slack0") or n - m, max_iter=kw.get("max_iter", 2000))
+    return counts
+
+
+def _examples(torch, rec_path, recorded, tsp_sizes, scenarios, netlib, want_netlib):
+    """Phase 8(a)'s three examples (`examples_main_path`); returns the
+    kernels' launches and scenario_batch's recorded K1 calls."""
     import collections
     import io
 
-    from minilp_tpu_torch import SolverOptions
     from minilp_tpu_torch.examples import netlib_runner, scenario_batch, tsp
     from minilp_tpu_torch.io.mps import write_mps
     from minilp_tpu_torch.ops.kernels import batched_simplex as bs, certify
     from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
     from minilp_tpu_torch.utils.synth import netlib_shaped_problem
 
-    log("[8a] the examples on the card")
-    recorded = []  # (tag, launches through the driver's routes)
-    bs.launches = ss.launches = certify.launches = 0  # counts from here on are the examples' path
     for n in tsp_sizes:
         rng = np.random.default_rng(0)
         pts = rng.random((n, 2))
@@ -1772,22 +2050,10 @@ def examples_main_path(torch, rec_path, cmp_k1, cmp_k2, tsp_sizes=TSP_SIZES,
         raise AssertionError(f"netlib_runner: records {events}, K2 launches {ss.launches - k2}")
     counts = {"batched_simplex": bs.launches, "streaming_simplex": ss.launches,
               "certify_f64": certify.launches}
-
-    # every launch above against its plain version on the same inputs (K2's
-    # one-block rerun is phase 3b's check, at this shape)
-    for tag, seen in recorded:
-        if not seen:
-            raise AssertionError(f"{tag}: no kernel launch recorded")
-        compare_launches(f"examples {tag}", seen, SolverOptions().effective_max_iter,
-                         cmp_k1, cmp_k2, one_block=False)
-    for A, b, c, lo, hi, kw in batch_calls:
-        m, n = A.shape[1:]
-        cmp_k1.run(f"examples scenario_batch {A.shape[0]} LPs", A, b, c, lo, hi,
-                   slack0=kw.get("slack0") or n - m, max_iter=kw.get("max_iter", 2000))
     n_cmp = sum(len(seen) for _, seen in recorded) + len(batch_calls)
     if n_cmp > counts["batched_simplex"] + counts["streaming_simplex"]:
         raise AssertionError(f"{n_cmp} kernel calls recorded, launches counted {counts}")
-    return counts
+    return dict(counts, batch_calls=batch_calls)
 
 
 def _sharded_calls(inputs, cols, batch_mesh, dry):
@@ -1939,9 +2205,12 @@ def check_bench_line(line, card, k2_pivots, n_lps=4 * BATCH, maros_obj=MAROS_OBJ
             finite(pd["kkt_err"]) and finite(pd.get("rel_gap_vs_certified"))
             and finite(pd.get("over_budget_s"))),
         "the card named": line["device"] == card,
-        "K1, K2, K3 and the certificate launched": (
+        "K1, K2, K3, the certificate and the basis kernel launched": (
             set(line["launches"]) == set(BENCH_KERNELS)
             and all(n > 0 for n in line["launches"].values())),
+        "the basis kernel's device stage at 25fv47 and maros": all(
+            finite(line[k]["breakdown"].get("basis_dev_s"))
+            for k in ("netlib_shape_25fv47", "netlib_shape_maros_r7")),
         "the batched line's stages": (
             set(BATCH_STAGES) <= set(line["batch_stages"])
             and all(finite(line["batch_stages"][k]) for k in BATCH_STAGES)),
@@ -1949,6 +2218,17 @@ def check_bench_line(line, card, k2_pivots, n_lps=4 * BATCH, maros_obj=MAROS_OBJ
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"bench line: failed {failed}")
+
+
+def bench_counted(module="minilp_tpu_torch.bench"):
+    """Run `python3 -m module` in this process under `host_checks_counted`,
+    then write the count to the standard error (`HOST_CHECKS_TAG`)."""
+    import runpy
+
+    sys.argv = [module]
+    with host_checks_counted() as host:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+    print(HOST_CHECKS_TAG + json.dumps(host), file=sys.stderr, flush=True)
 
 
 def bench_main_path(card, k2_pivots, cmd=BENCH_CMD, timeout_s=BENCH_TIMEOUT_S, **expect):
@@ -1969,7 +2249,11 @@ def bench_main_path(card, k2_pivots, cmd=BENCH_CMD, timeout_s=BENCH_TIMEOUT_S, *
     log(f"  bench line ({wall:.1f} s): {lines[0]}")
     line = json.loads(lines[0])
     check_bench_line(line, card, k2_pivots, **expect)
-    log(f"  every check of the bench line held; launches {line['launches']}")
+    counted = [ln for ln in res.stderr.splitlines() if ln.startswith(HOST_CHECKS_TAG)]
+    if len(counted) != 1 or json.loads(counted[0][len(HOST_CHECKS_TAG):]):
+        raise AssertionError(f"the bench's host factorizations of a final basis: {counted}")
+    log(f"  every check of the bench line held; launches {line['launches']}; no host "
+        f"factorization of a final basis")
     return line["launches"]
 
 
@@ -1983,11 +2267,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 3
-    return phases(torch)
+    highs = start_maros_highs()
+    try:
+        return phases(torch, highs)
+    finally:
+        if highs.poll() is None:
+            highs.kill()
+            highs.communicate()
 
 
-def phases(torch) -> int:
-    """Phases 1 to 9 (the module docstring; 5b runs before 5)."""
+def phases(torch, highs) -> int:
+    """Phases 1 to 9 (the module docstring; 5b runs before 5, 4c after
+    7a)."""
     t_start = time.perf_counter()
     sys.path.insert(0, str(HERE))
     import minilp_tpu_torch
@@ -2015,7 +2306,8 @@ def phases(torch) -> int:
     log("    nvcc: " + nvcc.splitlines()[-1])
 
     # ---- 2. build every kernel of the paths ---------------------------------
-    build_all(build, ["batched_simplex", "streaming_simplex", "packed_simplex", "certify_f64"])
+    build_all(build, ["batched_simplex", "streaming_simplex", "packed_simplex", "certify_f64",
+                      "basis_f64"])
 
     # ---- 3. K1 against its plain version on the card ------------------------
     log("[3] K1 (CUDA) vs plain torch on the card")
@@ -2107,12 +2399,14 @@ def phases(torch) -> int:
     expected = {tag: (want if want is not None else highs_objective(make()))
                 for tag, make, want in cases}
     bs.launches = 0  # counts from here on are the main path's
-    for tag, make, _want in cases:
-        solve_main_path(tag, make, expected[tag], "cold_solve_megakernel", rec_path)
+    with route_counted("phase 4") as basis_4:
+        for tag, make, _want in cases:
+            solve_main_path(tag, make, expected[tag], "cold_solve_megakernel", rec_path)
     k1_launches = bs.launches
     if k1_launches <= 0:
         raise AssertionError("the main path never launched K1")
-    log(f"  K1 launches on the main path: {k1_launches}")
+    log(f"  K1 launches on the main path: {k1_launches}; the basis kernel's "
+        f"{basis_4['launches']}, no host factorization of a final basis")
 
     # ---- 4b. the main path: Problem.solve() through K2 ----------------------
     log("[4b] main path through K2: Problem.solve() on the card")
@@ -2121,25 +2415,28 @@ def phases(torch) -> int:
     want = {tag: highs_objective(make()) for tag, make in netlib.items()}
     ss.launches = 0  # counts from here on are the main path's
     k2_pivots = {}
-    for tag, make in netlib.items():
-        _walls, _stages, k2_pivots[tag] = solve_main_path(
-            tag, make, want[tag], "cold_solve_streaming", rec_path,
-            ref=OBJ_25FV47 if tag == "25fv47" else None)
-        if k2_pivots[tag] != K2_COUNTS[tag][0]:
-            raise AssertionError(f"{tag}: K2 took {k2_pivots[tag]} pivots, expected "
-                                 f"{K2_COUNTS[tag][0]}")
+    with route_counted("phase 4b") as basis_4b:
+        for tag, make in netlib.items():
+            _walls, _stages, k2_pivots[tag] = solve_main_path(
+                tag, make, want[tag], "cold_solve_streaming", rec_path,
+                ref=OBJ_25FV47 if tag == "25fv47" else None)
+            if k2_pivots[tag] != K2_COUNTS[tag][0]:
+                raise AssertionError(f"{tag}: K2 took {k2_pivots[tag]} pivots, expected "
+                                     f"{K2_COUNTS[tag][0]}")
     k2_launches = ss.launches
     if k2_launches <= 0:
         raise AssertionError("the main path never launched K2")
-    log(f"  K2 launches on the main path: {k2_launches}")
+    log(f"  K2 launches on the main path: {k2_launches}; the basis kernel's "
+        f"{basis_4b['launches']}, no host factorization of a final basis")
 
     def before_k2():
         prob = netlib["25fv47"]()
         prob.options = SolverOptions(use_streaming="never")
         return prob
 
-    walls, _stages, pivots = solve_main_path("25fv47_use_streaming_never", before_k2,
-                                             want["25fv47"], "cold_solve", rec_path, reps=1)
+    with route_counted("phase 4b, use_streaming=never") as basis_never:
+        walls, _stages, pivots = solve_main_path("25fv47_use_streaming_never", before_k2,
+                                                 want["25fv47"], "cold_solve", rec_path, reps=1)
     log(f"  25fv47 without K2 (f64 torch engine on the card): wall_s={walls[0]:.3f} "
         f"pivots={pivots}")
 
@@ -2156,7 +2453,10 @@ def phases(torch) -> int:
         raise AssertionError(f"the incremental path launched K1 and K2 {warm}")
 
     # ---- 7. PDHG and the PDHG → simplex crossover ---------------------------
-    maros = crossover_main_path(torch, rec_path)
+    maros = crossover_main_path(torch, rec_path, highs)
+
+    # ---- 4c. the basis kernel against its plain version and the host -------
+    basis = compare_basis(torch)
     pdhg_engine_on_card(torch, rec_path, expected["single_lp_256x1024"])
     pdhg_maros_wall_bounded(torch, maros["objective"])
 
@@ -2185,7 +2485,12 @@ def phases(torch) -> int:
                                      "bench": bench["streaming_simplex"]},
                "packed_simplex": {"batched": k3_launches, "bench": bench["packed_simplex"]},
                "certify_f64": {"batched": cert_launches, "examples": ex["certify_f64"],
-                               "bench": bench["certify_f64"]}}
+                               "bench": bench["certify_f64"]},
+               "basis_f64": {"cold": basis_4["launches"] + basis_4b["launches"]
+                             + basis_never["launches"],
+                             "incremental": warm["basis_f64"],
+                             "crossover": maros["basis_launches"],
+                             "examples": ex["basis_f64"], "bench": bench["basis_f64"]}}
     row = lambda name, replaces, err, ms, plain_ms, bnd, library_ms=None: {
         "name": name, "route": "cuda", "source": f"minilp_tpu_torch/csrc/{name}.cu",
         "replaces": replaces,
@@ -2207,6 +2512,16 @@ def phases(torch) -> int:
                  cert["plain_ms"], cert["bound"], cert["library_ms"]),
              replaces_note="host numpy (_verify_f64), not a Pallas kernel",
              host_ms=cert["host_ms"]),
+        dict(row("basis_f64", tpu("batched_simplex", 555),
+                 max(f["max_abs_err"] for f in basis.values()), basis["25fv47"]["ms"],
+                 basis["25fv47"]["plain_ms"], basis["25fv47"]["bound"],
+                 basis["25fv47"]["library_ms"]),
+             replaces_note="host numpy and SciPy (_verify_f64 on one LP, "
+                           "EngineHandle._certify_timed, _state_from_certified_basis, "
+                           "ensure_binv), not a Pallas kernel; times at the 25fv47 basis",
+             host_ms=basis["25fv47"]["host_ms"],
+             by_basis={tag: {k: f[k] for k in ("m", "ms", "plain_ms", "library_ms", "host_ms")}
+                       | {"bound_ms": f["bound"][0]} for tag, f in basis.items()}),
     ]}
     log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))

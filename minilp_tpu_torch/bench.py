@@ -26,13 +26,15 @@ and its lines, each run through the port's own entry points:
 * `_pdhg_maros_metric`, last: the crossover's f32 device stage for half of
   a 90 s budget, then the sparse f64 PDHG engine in `stop_at` chunks, warm.
 
-On a card the four kernels are built first, all at once (one `nvcc`
+On a card the five kernels are built first, all at once (one `nvcc`
 each, or loaded from `build/minilp_tpu_torch/` where built before), so no
 line's wall carries a build.  It prints exactly one JSON line, whose keys
 are a superset of bench.py's: `backend` is the torch device type, `device`
 the card's name and power limit as `nvidia-smi` gives them,
 `kernel_build_s` the wall of the builds, `launches` the launches of K1, K2,
-K3 and the certificate during the run.  Each line takes its sizes as
+K3, the batch certificate and the basis kernel (`basis_f64`, the f64
+certificate of each single-LP solve's final basis, whose device time is
+the breakdowns' `basis_dev_s`) during the run.  Each line takes its sizes as
 keyword arguments (bench.py's by default), so the tests run every line
 small on the CPU, where each kernel runs as its plain torch version.
 
@@ -61,7 +63,8 @@ import torch
 
 from .canonical import canonicalize
 from .engine import crossover, driver, pdhg
-from .ops.kernels import batched_simplex, build, certify, packed_simplex, streaming_simplex
+from .ops.kernels import (basis_f64, batched_simplex, build, certify, packed_simplex,
+                          streaming_simplex)
 from .options import SolverOptions
 from .parallel.batched import make_random_batch_host, solve_batches_pipelined
 from .status import Status
@@ -79,7 +82,7 @@ PDHG_BUDGET_S = 90.0
 K3_KW = dict(max_iter=2000, refactor_period=32, feas_tol=1e-5, opt_tol=1e-6,
              pivot_tol=1e-6, bland_after=200)
 KERNELS = {"batched_simplex": batched_simplex, "streaming_simplex": streaming_simplex,
-           "packed_simplex": packed_simplex, "certify_f64": certify}
+           "packed_simplex": packed_simplex, "certify_f64": certify, "basis_f64": basis_f64}
 
 
 def _sync(device) -> None:
@@ -206,13 +209,16 @@ def _single_lp_and_incremental_metrics(*, device, shapes=SINGLE_LP) -> dict:
 
 def _shape_solve(shape, device):
     """`Problem.solve()` of `netlib_shaped_problem(*shape, seed=1)`: the
-    solution, its wall and the stage breakdown with `unattributed_s`."""
+    solution, its wall and the stage breakdown with `unattributed_s` (the
+    wall less the host stages; the device stages, `*_dev_s`, lie inside
+    them)."""
     prob = netlib_shaped_problem(*shape, seed=1)
     prob.options = SolverOptions(device=device)
     profiling.reset_stages()
     sol, wall = _timed_solve(prob, device)
     stages = profiling.stages()
-    stages["unattributed_s"] = wall - sum(v for k, v in stages.items() if k.endswith("_s"))
+    stages["unattributed_s"] = wall - sum(v for k, v in stages.items()
+                                          if k.endswith("_s") and not k.endswith("_dev_s"))
     return sol, wall, stages
 
 

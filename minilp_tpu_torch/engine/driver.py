@@ -4,7 +4,7 @@ The seam between the API layer and the engines, ported from
 `minilp_tpu/engine/driver.py` for the single-LP `Problem.solve()` path:
 
     presolve → canonicalize → [K1 megakernel (padded up to (512, 2048))
-    or K2 streaming kernel (Netlib scale) → host f64 check
+    or K2 streaming kernel (Netlib scale) → f64 check
     → (uncertified claim) exact host polish] → certified state → certify()
 
 with the f64 torch engine as the last resort.  The device is explicit
@@ -14,6 +14,15 @@ nothing falls back quietly to the CPU.  Unlike the JAX package, no
 The algorithmic fallbacks stay — they act on a result, not on a fault: an
 uncertified claim goes to the exact polish, any other kernel claim to the
 f64 engine.
+
+The f64 check of the final basis, the certified state rebuilt from it,
+`certify()` and the dense B⁻¹ of a warm restart run on the card for a card
+solve (`_certify_on_device`): one launch of the basis kernel
+(`ops/kernels/basis_f64.py`) factors the basis once, and its certificate
+serves every seam that asks for the same (basis, vstat) of the same
+canonical form (`_basis_certificate`).  A CPU solve keeps the
+JAX package's host code (numpy's LU below `_SPARSE_HOST_M` rows, SuperLU
+above).
 
 Above `_CROSSOVER_M` padded rows a cold f64 solve starts with the PDHG →
 simplex crossover (`engine/crossover.py`: the PDHG stage on the device,
@@ -34,6 +43,7 @@ launches under the TPU worker's watchdog, and an f32 head start for f64).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 from typing import Dict, Tuple
 
@@ -85,6 +95,85 @@ def _raise_for_status(status: int) -> None:
     raise api.SolverFailure(f"solver terminated with status {Status(status).name}")
 
 
+def _certify_on_device(opts: SolverOptions) -> bool:
+    """Whether the solve's final bases are certified on its device by the
+    basis kernel: a card solve's are; a CPU solve keeps the host code."""
+    return _device(opts).type == "cuda"
+
+
+def _A_version(can: CanonicalLP) -> tuple:
+    """What tells one A of `can` from another: an edit of A activates a
+    padding row (`incremental._append_row`: `can.m` grows), and a larger
+    padding is a new shape."""
+    return (can.m,) + can.A.shape
+
+
+def _device_A(can: CanonicalLP, dev: torch.device) -> torch.Tensor:
+    """`can.A` in f64 on `dev`, uploaded once for each of its versions
+    (`_A_version`)."""
+    key = (dev, _A_version(can))
+    cached = getattr(can, "_A_dev", None)
+    if cached is None or cached[0] != key:
+        cached = (key, torch.as_tensor(np.ascontiguousarray(can.A, dtype=np.float64),
+                                       device=dev))
+        can._A_dev = cached
+    return cached[1]
+
+
+def _certificate_key(can: CanonicalLP, basis, vstat, tol: float) -> tuple:
+    """What a certificate of (basis, vstat) on `can` depends on: A's version
+    (`_A_version`), a digest of b, c, lo, hi, basis and vstat, and `tol`.
+    So an edit of `can` needs no call to drop it."""
+    digest = hashlib.blake2b(digest_size=16)
+    for v, dt in ((can.b, np.float64), (can.c, np.float64), (can.lo, np.float64),
+                  (can.hi, np.float64), (basis, np.int32), (vstat, np.int32)):
+        digest.update(np.ascontiguousarray(v, dtype=dt).tobytes())
+    return _A_version(can), digest.digest(), float(tol)
+
+
+def _launch_certificate(can: CanonicalLP, basis, vstat, opts: SolverOptions, **kw):
+    """One launch of the basis kernel on (basis, vstat) of `can`, on the
+    solve's device (`basis_f64.certificate`; `kw` its `inverse`, `row`,
+    `tol`)."""
+    from ..ops.kernels import basis_f64
+
+    dev = _device(opts)
+    put = lambda v, dt: torch.as_tensor(np.ascontiguousarray(v, dtype=dt), device=dev)
+    f64 = [put(v, np.float64) for v in (can.b, can.c, can.lo, can.hi)]
+    return basis_f64.certificate(_device_A(can, dev), *f64, put(basis, np.int32),
+                                 put(vstat, np.int32), int(Status.OPTIMAL), **kw)
+
+
+def _basis_certificate(can: CanonicalLP, basis, vstat, opts: SolverOptions, *,
+                       inverse: bool = False, tol: float = 1e-7):
+    """The certificate of (basis, vstat) on `can` (`basis_f64.Certificate`:
+    x_B, y, d, x, obj, the feasibility flags at `tol`, `singular`, and B⁻¹
+    with `inverse`), from ONE launch of the basis kernel on the solve's
+    device.  `can` keeps its last certificate: a later call for the same
+    (basis, vstat, tol) on the same `can` takes it while it has what is
+    asked (`_certificate_key`)."""
+    key = _certificate_key(can, basis, vstat, tol)
+    memo = getattr(can, "_basis_cert", None)
+    if memo is not None and memo[0] == key and (
+            not inverse or memo[1].Binv is not None or memo[1].singular):
+        return memo[1]
+    cert = _launch_certificate(can, basis, vstat, opts, inverse=inverse, tol=tol)
+    can._basis_cert = (key, cert)
+    return cert
+
+
+def _exact_inverse(can: CanonicalLP, basis, vstat, opts: SolverOptions) -> np.ndarray:
+    """The exact f64 B⁻¹ of `basis`: the basis kernel's on a card solve,
+    numpy's inverse on the host; a singular basis raises LinAlgError on
+    both."""
+    if _certify_on_device(opts):
+        binv = _basis_certificate(can, basis, vstat, opts, inverse=True).Binv
+        if binv is None:
+            raise np.linalg.LinAlgError("Singular matrix")
+        return binv.copy()  # the caller's own: the certificate stays as it was
+    return np.linalg.inv(can.A[:, np.asarray(basis)])
+
+
 class EngineHandle:
     """Owns the canonical form + the final solver state for one Problem.
 
@@ -92,7 +181,8 @@ class EngineHandle:
     the `Solution` facade owns this handle.  Its state is host numpy: every
     consumer (`certify`, `var_value`) reads it on the host.  The reported
     solution is *certified*: the exact vertex is recomputed from
-    (basis, vstat) in host f64 and checked primal + dual feasible.
+    (basis, vstat) in f64 and checked primal + dual feasible, by the basis
+    kernel on a card solve and on the host otherwise.
     """
 
     def __init__(
@@ -135,16 +225,23 @@ class EngineHandle:
             return
         can = self.can
         basis = np.asarray(self._state.basis)
-        A = can.A.astype(np.float64)
-        t0 = time.perf_counter()
-        if can.M >= _SPARSE_HOST_M:
-            lu = hostlp.factorize_basis(A, basis, A_csc=can.csc())
-            Binv = None if lu is None else lu.lu.solve(np.eye(can.M))
+        if _certify_on_device(self.opts):
+            t0 = time.perf_counter()
+            Binv = _basis_certificate(can, basis, self._state.vstat, self.opts,
+                                      inverse=True).Binv
+            # the handle's own copy: the certificate stays as it was
+            Binv = None if Binv is None else Binv.copy()
         else:
-            try:
-                Binv = np.linalg.inv(A[:, basis])
-            except np.linalg.LinAlgError:
-                Binv = None
+            A = can.A.astype(np.float64)
+            t0 = time.perf_counter()
+            if can.M >= _SPARSE_HOST_M:
+                lu = hostlp.factorize_basis(A, basis, A_csc=can.csc())
+                Binv = None if lu is None else lu.lu.solve(np.eye(can.M))
+            else:
+                try:
+                    Binv = np.linalg.inv(A[:, basis])
+                except np.linalg.LinAlgError:
+                    Binv = None
         if Binv is None:
             # certified bases are nonsingular; an identity seed keeps the
             # handle usable and a warm restart's Newton telltale catches it
@@ -176,6 +273,13 @@ class EngineHandle:
         can = self.can
         basis = np.asarray(self._state.basis)
         vstat = np.asarray(self._state.vstat)
+        if _certify_on_device(self.opts):
+            cert = _basis_certificate(can, basis, vstat, self.opts, tol=tol)
+            self.certified = not cert.singular and cert.pfeas and cert.dfeas
+            if self.certified:
+                self._x_cache = cert.x.copy()
+                self._exact_obj = cert.obj
+            return self.certified
         A = can.A.astype(np.float64)
         lo = can.lo.astype(np.float64)
         hi = can.hi.astype(np.float64)
@@ -362,30 +466,39 @@ def _state_from_certified_basis(
     """Exact f64 SimplexState (host numpy) rebuilt from a certified
     (basis, vstat).
 
-    One host LU gives (xB, d, obj) consistent with the basis; the dense B⁻¹
-    is a (0, 0) placeholder that `EngineHandle.ensure_binv` fills on first
-    access.  Returns None on a singular basis (caller falls back)."""
+    One LU gives (xB, d, obj) consistent with the basis: the basis kernel's
+    certificate on a card solve (`_basis_certificate`: the route's own
+    check's when it made one; `lu`, a host route's factors, is then not
+    used), a host LU otherwise.  The dense B⁻¹ is a (0, 0) placeholder that `EngineHandle.ensure_binv`
+    fills on first access.  Returns None on a singular basis (caller falls
+    back)."""
     t_rebuild = time.perf_counter()
-    A = can.A.astype(np.float64)
-    xN = nonbasic_values(vstat, can.lo, can.hi)
-    if can.M >= _SPARSE_HOST_M:
-        if lu is None:
-            lu = hostlp.factorize_basis(A, basis, A_csc=can.csc())
-        if lu is None:
+    if _certify_on_device(opts):
+        cert = _basis_certificate(can, basis, vstat, opts)
+        if cert.singular:
             return None
-        xB = lu.lu.solve(can.b.astype(np.float64) - A @ xN)
-        y = lu.lu.solve(can.c[basis].astype(np.float64), trans="T")
+        xB, d, obj = cert.xB.copy(), cert.d.copy(), cert.obj
     else:
-        Bmat = A[:, basis]
-        try:
-            xB = np.linalg.solve(Bmat, can.b.astype(np.float64) - A @ xN)
-            y = np.linalg.solve(Bmat.T, can.c[basis].astype(np.float64))
-        except np.linalg.LinAlgError:
-            return None
+        A = can.A.astype(np.float64)
+        xN = nonbasic_values(vstat, can.lo, can.hi)
+        if can.M >= _SPARSE_HOST_M:
+            if lu is None:
+                lu = hostlp.factorize_basis(A, basis, A_csc=can.csc())
+            if lu is None:
+                return None
+            xB = lu.lu.solve(can.b.astype(np.float64) - A @ xN)
+            y = lu.lu.solve(can.c[basis].astype(np.float64), trans="T")
+        else:
+            Bmat = A[:, basis]
+            try:
+                xB = np.linalg.solve(Bmat, can.b.astype(np.float64) - A @ xN)
+                y = np.linalg.solve(Bmat.T, can.c[basis].astype(np.float64))
+            except np.linalg.LinAlgError:
+                return None
+        d = can.c - y @ A
+        obj = float(can.c[basis] @ xB + can.c @ xN)
     Binv = np.zeros((0, 0))  # lazy placeholder (handle materializes)
-    d = can.c - y @ A
     d[vstat == int(VarStat.BASIC)] = 0.0
-    obj = float(can.c[basis] @ xB + can.c @ xN)
     dtype = _np_dtype(opts)
     state = SimplexState(
         basis=np.asarray(basis, dtype=np.int32),
@@ -473,25 +586,34 @@ def _try_megakernel_solve(can: CanonicalLP, opts: SolverOptions,
         warm_state = tuple(np.asarray(x)[None] for x in warm_state)
     lp = [x[None] for x in (can.A, can.b, can.c, can.lo, can.hi)]
     with profiling.stage("megakernel_s", dev):
-        # f32 on the device; the exact f64 check of the basis on the host
+        # f32 on the device; the exact f64 check of the basis on the card
+        # (the basis kernel) for a card solve, else on the host
         rows = megakernel_rows(
             *upload(dev, *lp, dtype=np.float32),
             slack0=can.nv,
             max_iter=opts.effective_max_iter(can.M, can.N),
             warm_state=warm_state,
-        )
-        res = verify_rows_f64(rows.cpu().numpy(), *lp)
-    basis = np.asarray(res.basis[0])
-    vstat = np.asarray(res.vstat[0]).astype(np.int8)
-    if not bool(res.verified[0]):
+        ).cpu().numpy()
+        if _certify_on_device(opts):
+            m, n = can.M, can.N
+            basis, vstat = rows[0, :m], rows[0, m:m + n]
+            status, niter = int(rows[0, m + n]), int(rows[0, m + n + 1])
+            cert = _basis_certificate(can, basis, vstat, opts)
+            verified = cert.verified and status == int(Status.OPTIMAL)
+        else:
+            res = verify_rows_f64(rows, *lp)
+            basis, vstat = res.basis[0], res.vstat[0]
+            status, niter = int(res.status[0]), int(res.niter[0])
+            verified = bool(res.verified[0])
+    basis = np.asarray(basis)
+    vstat = np.asarray(vstat).astype(np.int8)
+    if not verified:
         # near-optimal f32 claim that failed exact certification: finish it
         # with a few exact f64 pivots on the host
-        if int(res.status[0]) == int(Status.OPTIMAL):
-            return _host_polish_from_basis(
-                can, basis, vstat, opts, niter0=int(res.niter[0])
-            )
+        if status == int(Status.OPTIMAL):
+            return _host_polish_from_basis(can, basis, vstat, opts, niter0=niter)
         return None
-    return _state_from_certified_basis(can, basis, vstat, int(res.niter[0]), opts)
+    return _state_from_certified_basis(can, basis, vstat, niter, opts)
 
 
 def _streaming_eligible(can: CanonicalLP, opts: SolverOptions) -> bool:
@@ -553,10 +675,14 @@ def _try_streaming_solve(can: CanonicalLP, opts: SolverOptions,
     """
     from ..ops.kernels.streaming_simplex import solve_streaming
 
-    res = solve_streaming(can.A, can.b, can.c, can.lo, can.hi,
-                          **streaming_options(can, opts), warm_state=warm_state)
+    options = streaming_options(can, opts)
+    res = solve_streaming(can.A, can.b, can.c, can.lo, can.hi, **options,
+                          warm_state=warm_state, A_f64=_device_A(can, options["device"]))
     basis = np.asarray(res.basis)
     vstat = np.asarray(res.vstat).astype(np.int8)
+    if res.cert is not None:
+        # K2's check on the card: kept as `_basis_certificate` keeps its own
+        can._basis_cert = (_certificate_key(can, basis, vstat, 1e-7), res.cert)
     if bool(res.verified):
         return _state_from_certified_basis(can, basis, vstat, int(res.niter), opts)
     if int(res.status) in (
@@ -577,12 +703,12 @@ def _solve_engine(can: CanonicalLP, opts: SolverOptions) -> SimplexState:
     args = (put(can.A), put(can.b), put(can.c), put(can.lo), put(can.hi))
     state = solve_canonical(*args, can.vstat0, can.basis0, opts=opts)
     if int(state.status) == int(Status.NUMERICAL):
-        # Rare: the Newton refresh diverged.  Rebuild the inverse exactly on
-        # the host and resume from the failed state's basis.
-        B = can.A[:, state.basis.cpu().numpy()]
+        # Rare: the Newton refresh diverged.  Rebuild the inverse exactly
+        # (on the card for a card solve) and resume from the failed state's
+        # basis.
+        Binv0 = _exact_inverse(can, state.basis.cpu().numpy(), state.vstat.cpu().numpy(), opts)
         state = solve_canonical(
-            *args, state.vstat, state.basis, opts=opts,
-            Binv0=put(np.linalg.inv(B)),
+            *args, state.vstat, state.basis, opts=opts, Binv0=put(Binv0),
         )
     return state_to_numpy(state)
 
@@ -672,8 +798,9 @@ def solve_problem(problem: "api.Problem") -> "api.Solution":
     _emit_record("cold_solve", can, state, status, t.wall_s, opts)
     _raise_for_status(status)
     handle = EngineHandle(can, state, problem, opts)
-    # Opportunistic certification for every dtype: one host f64 solve against
-    # the final basis; when it passes, exact values are served.
+    # Opportunistic certification for every dtype: one f64 solve against the
+    # final basis (on the card for a card solve); when it passes, exact
+    # values are served.
     if not handle.certify() and status == int(Status.OPTIMAL):
         # An OPTIMAL claim that fails exact certification is a drifted stop:
         # repair with exact host pivots from the claimed basis.

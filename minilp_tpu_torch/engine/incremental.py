@@ -110,12 +110,6 @@ def _ensure_row_capacity(handle) -> None:
     )
 
 
-def _exact_host_inverse(can, basis) -> np.ndarray:
-    """Exact inverse of the basis matrix on the host (numpy f64 LU): the
-    seed after the engine's Newton refresh reports divergence."""
-    return np.linalg.inv(can.A[:, np.asarray(basis)])
-
-
 def _adopt(handle, state) -> None:
     """Install a re-solved host state and certify it."""
     handle.state = state
@@ -239,7 +233,8 @@ def _try_streaming_resolve(handle, event: str) -> bool:
 def _run_engine_resolve(handle, event: str, run) -> None:
     """The f64 (or `opts.dtype`) torch engine warm on the solve's device:
     `run(args, basis, vstat, Binv0)` from the handle's state, again from the
-    exact host inverse after a Newton divergence."""
+    exact inverse (`driver._exact_inverse`: the basis kernel's on a card
+    solve) after a Newton divergence."""
     can, opts = handle.can, handle.opts
     dev = _driver._device(opts)
     dt = torch.float64 if opts.dtype == "float64" else torch.float32
@@ -249,7 +244,8 @@ def _run_engine_resolve(handle, event: str, run) -> None:
     with records.timed() as t:
         state = run(args, basis, vstat, put(Binv))
         if int(state.status) == int(Status.NUMERICAL):
-            state = run(args, basis, vstat, put(_exact_host_inverse(can, basis)))
+            state = run(args, basis, vstat,
+                        put(_driver._exact_inverse(can, basis, vstat, opts)))
         state = state_to_numpy(state)
         status = int(state.status)
     _driver._emit_record(event, can, state, status, t.wall_s, opts)
@@ -411,7 +407,17 @@ def add_gomory_cut(handle, idx: int):
         raise ValueError("add_gomory_cut requires a fractional basic variable")
 
     # tableau row of the basic variable: α = (B⁻¹)_pos · A (a BTRAN row read)
-    if handle.binv_stale:
+    if handle.binv_stale and _driver._certify_on_device(handle.opts):
+        # a lazy inverse on a card solve: the one row, from the basis
+        # kernel (the handle's inverse stays lazy, as the host's BTRAN
+        # leaves it)
+        cert = _driver._launch_certificate(can, basis, state.vstat, handle.opts, row=pos)
+        if cert.singular:
+            handle.ensure_binv()  # the identity fallback
+            Binv_row = np.asarray(handle._state.Binv[pos])
+        else:
+            Binv_row = cert.Binv[0]
+    elif handle.binv_stale:
         # a lazy inverse: one sparse BTRAN (B⁻ᵀ e_pos), not the dense B⁻¹
         lu = hostlp.factorize_basis(can.A.astype(np.float64), basis, A_csc=can.csc())
         if lu is None:

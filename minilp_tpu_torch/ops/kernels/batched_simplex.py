@@ -26,8 +26,9 @@ Three layers, as in the JAX package:
   f64 optimality certificate follow from one f64 LU per LP:
   `solve_batch_megakernel`, the batch entry point, certifies on the same
   device (`certify.py`'s kernel, one device-to-host copy of the results);
-  the driver's single-LP route copies the rows to the host and checks them
-  there (`verify_rows_f64`, `_verify_f64`).
+  the driver's single-LP route checks its LP on the host (`verify_rows_f64`,
+  `_verify_f64`) on a CPU solve, and with the basis kernel (`basis_f64.py`)
+  on a card solve.
 
 The iterate is f32 (matmuls in full f32: the plain version expects
 `torch.backends.cuda.matmul.allow_tf32` to be False, PyTorch's default).

@@ -27,7 +27,8 @@ One recorded deviation from `_verify_f64`: an exactly singular basis (an
 exact zero pivot, or a basis that repeats a column) fails its own lane only.
 numpy's batched solve raises `LinAlgError` for the whole batch, and the host
 check then fails every lane.  The single-LP routes (the driver's K1 launch,
-K2's `solve_streaming`) keep the host check `_verify_f64`.
+K2's `solve_streaming`) certify with the basis kernel (`basis_f64.py`) on
+a card and with the host check `_verify_f64` on the CPU.
 """
 
 from __future__ import annotations

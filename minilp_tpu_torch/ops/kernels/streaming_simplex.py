@@ -43,8 +43,9 @@ Three layers, as for K1:
   then a chunk loop: each launch runs at most `chunk_iters` pivots, a
   host monitor (`SurrenderTracker`) reads the launch's packed scalars (one
   device-to-host copy per chunk) and either stops or relaunches warm from
-  the device-resident (basis, vstat, B⁻¹).  The final basis is certified on
-  the host in f64 (`_verify_f64`, shared with K1).
+  the device-resident (basis, vstat, B⁻¹).  The final basis is certified in
+  f64 on the card by the basis kernel (`basis_f64.py`) for a card solve,
+  else on the host (`_verify_f64`, shared with K1).
 
 The iterate is f32 (matmuls in full f32: the plain version expects
 `torch.backends.cuda.matmul.allow_tf32` to be False, PyTorch's default).
@@ -64,7 +65,7 @@ import torch
 
 from ...status import Status, VarStat
 from ...utils import profiling
-from . import build
+from . import basis_f64, build
 from .batched_simplex import _verify_f64
 
 
@@ -76,6 +77,8 @@ class StreamResult(NamedTuple):
     obj: np.float64       # exact objective (f64 recompute)
     verified: np.bool_    # f64 optimality certificate held
     x: np.ndarray         # (n,) f64 — exact vertex (f64 recompute)
+    #: the basis kernel's whole certificate on a card, else None
+    cert: Optional[basis_f64.Certificate] = None
 
 
 class StreamOut(NamedTuple):
@@ -826,9 +829,13 @@ def prepare_launch(
                   max_iter=max_iter)
 
 
-def solve_streaming(A, b, c, lo, hi, **options) -> StreamResult:
+def solve_streaming(A, b, c, lo, hi, *, A_f64: Optional[torch.Tensor] = None,
+                    **options) -> StreamResult:
     """Solve ONE canonical LP through K2 (module docstring); `options` are
-    `prepare_launch`'s.
+    `prepare_launch`'s.  On a card the final basis is certified by the
+    basis kernel, on A in f64 on the card (`A_f64`, the caller's copy,
+    else uploaded here), and its certificate comes back in `cert`; on the
+    CPU by the host's `_verify_f64`.
 
     Each launch runs at most the chunk's pivots; the solve relaunches warm
     from the previous launch's device-resident (basis, vstat, B⁻¹) until a
@@ -868,13 +875,23 @@ def solve_streaming(A, b, c, lo, hi, **options) -> StreamResult:
     basis = out.basis.cpu().numpy()
     vstat = out.vstat.cpu().numpy()
     status = np.int32(Status.NUMERICAL) if surrender else np.int32(st)
+    dev = out.basis.device
     t_verify = time.perf_counter()
-    obj, verified, x = _verify_f64(
-        launch.A[None], launch.b[None], launch.c[None], launch.lo[None],
-        launch.hi[None], basis[None], vstat[None], np.asarray(status)[None],
-    )
+    cert = None
+    if dev.type == "cuda":
+        # the unpadded LP (the padding columns are inert FIXED at 0)
+        put = lambda v: torch.as_tensor(np.ascontiguousarray(v, dtype=np.float64), device=dev)
+        cert = basis_f64.certificate(put(A) if A_f64 is None else A_f64, put(b),
+                                     *(put(v[:n]) for v in (c, lo, hi)),
+                                     out.basis, out.vstat[:n], int(status))
+        obj, verified, x = cert.obj, cert.verified, cert.x
+    else:
+        obj, verified, x = (v[0] for v in _verify_f64(
+            launch.A[None], launch.b[None], launch.c[None], launch.lo[None],
+            launch.hi[None], basis[None], vstat[None], np.asarray(status)[None],
+        ))
     profiling.record_stage("stream_verify_s", time.perf_counter() - t_verify)
     return StreamResult(
         basis=basis, vstat=vstat[:n], status=status, niter=np.int32(total_iter),
-        obj=obj[0], verified=verified[0], x=x[0][:n],
+        obj=obj, verified=verified, x=x[:n], cert=cert,
     )

@@ -5,6 +5,8 @@ Stage timers give a coarse host-side wall-clock attribution of one solve
 through `stages()`.  A stage that launches work on a CUDA device passes that
 device: its timer then synchronises the device before reading the clock at
 both ends, so the stage owns its own device time and not its predecessor's.
+`device_stage` times a device's own work by CUDA events instead
+(`basis_dev_s`: the basis kernel's launches of a solve).
 `trace()` packages `torch.profiler` for a block of solves.
 """
 
@@ -54,6 +56,24 @@ def stage(name: str, device: torch.device | None = None):
     finally:
         _sync(device)
         record_stage(name, time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def device_stage(name: str, device: torch.device | None):
+    """A stage timed on a CUDA `device` by CUDA events around what the block
+    enqueues on the current stream: the device's own time, without the
+    host's.  The time is read when the block's work has ended (the exit
+    waits for it).  On any other device the block runs untimed."""
+    if device is None or torch.device(device).type != "cuda":
+        yield
+        return
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    yield
+    stop.record()
+    stop.synchronize()
+    record_stage(name, start.elapsed_time(stop) / 1e3)
 
 
 @contextlib.contextmanager

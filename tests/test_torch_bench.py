@@ -192,7 +192,7 @@ def test_line_keys_are_a_superset_of_bench_py(small_line):
             assert per_tag <= set(entry), (key, tag, sorted(per_tag - set(entry)))
     assert (line["backend"], line["device"]) == ("cpu", "cpu")
     assert line["launches"] == {"batched_simplex": 0, "streaming_simplex": 0,
-                                "packed_simplex": 0, "certify_f64": 0}
+                                "packed_simplex": 0, "certify_f64": 0, "basis_f64": 0}
     assert "error" not in json.dumps(line) and None not in _leaves(line)
 
 
@@ -223,10 +223,16 @@ def test_batched_line_carries_its_stages(small_line):
         maros_obj=line["netlib_shape_maros_r7"]["objective"])
     with pytest.raises(AssertionError, match="the batched line's stages"):
         check(line)
-    # with the device stages and a launch of each kernel, every check holds
+    # with the device stages (the batched line's, and the basis kernel's in
+    # the 25fv47 and maros breakdowns) and a launch of each kernel, every
+    # check holds
+    on_card = lambda key: dict(line[key], breakdown=dict(line[key]["breakdown"],
+                                                         basis_dev_s=0.005))
     check(dict(line, batch_stages=dict(stages, batch_upload_dev_s=0.001,
                                        batch_kernel_dev_s=0.002, batch_verify_dev_s=0.0001),
-               launches={name: 1 for name in line["launches"]}))
+               launches={name: 1 for name in line["launches"]},
+               netlib_shape_25fv47=on_card("netlib_shape_25fv47"),
+               netlib_shape_maros_r7=on_card("netlib_shape_maros_r7")))
 
 
 def test_small_line_is_certified(small_line):

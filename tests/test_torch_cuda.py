@@ -18,6 +18,8 @@ import torch
 from minilp_tpu_torch import (ComparisonOp, Infeasible, LinearExpr, OptimizationDirection,
                               Problem, SolverOptions, Variable)
 from minilp_tpu_torch.canonical import canonicalize
+from minilp_tpu_torch.engine import driver, hostlp
+from minilp_tpu_torch.ops.kernels import basis_f64
 from minilp_tpu_torch.ops.kernels import batched_simplex as bs
 from minilp_tpu_torch.ops.kernels import certify
 from minilp_tpu_torch.ops.kernels import packed_simplex as ps
@@ -594,3 +596,136 @@ def test_batch_entry_points_certify_on_the_card(cuda, monkeypatch):
                 batched.solve_batch_certified(A, b, c, lo, hi, device=cuda)):
         assert res.verified.all()
     assert certify.launches == before + 3
+
+
+# ---- the basis kernel: the f64 certificate of one LP's final basis ------------
+
+def _solved_basis(m=60, nv=150, seed=11):
+    """The canonical form, final basis and vstat of a CPU solve."""
+    prob = netlib_shaped_problem(m, nv, 0.06, seed=seed)
+    prob.options = SolverOptions(device="cpu")
+    h = prob.solve()._engine
+    return h.can, np.asarray(h._state.basis), np.asarray(h._state.vstat).astype(np.int32)
+
+
+def _basis_args(cuda, can, basis, vstat):
+    t = lambda v, dt: torch.as_tensor(np.ascontiguousarray(v, dtype=dt), device=cuda)
+    return ([t(v, np.float64) for v in (can.A, can.b, can.c, can.lo, can.hi)]
+            + [t(basis, np.int32), t(vstat, np.int32)])
+
+
+@pytest.mark.parametrize("case", ["optimal", "non_optimal_status", "infinite_bound",
+                                  "repeated", "zero_pivot"])
+def test_basis_kernel_matches_plain(cuda, case):
+    can, basis, vstat = _solved_basis()
+    A = can.A.copy()
+    status = 1
+    if case == "non_optimal_status":
+        status = 4
+    elif case == "infinite_bound":
+        sl = np.arange(can.nv, can.nv + can.m)
+        j = int(sl[(vstat[sl] == 0) & np.isinf(can.hi[sl])][0])
+        vstat = vstat.copy()
+        vstat[j] = 1  # AT_UPPER at +inf
+    elif case == "repeated":
+        basis = basis.copy()
+        basis[1] = basis[0]
+    elif case == "zero_pivot":
+        A[:, basis[int(np.flatnonzero(basis < can.nv)[0])]] = 0.0
+    args = _basis_args(cuda, can, basis, vstat)
+    args[0] = torch.as_tensor(A, device=cuda)
+    before = basis_f64.launches
+    got = basis_f64.basis_kernel_call(*args, status, inverse=True)
+    want = basis_f64.basis_plain(*args, status, inverse=True)
+    torch.cuda.synchronize()
+    assert basis_f64.launches == before + 1  # the plain version is no launch
+    m, n = can.M, can.N
+    k, p = (basis_f64.unpack(t.cpu().numpy(), m, n) for t in (got, want))
+    assert (k.pfeas, k.dfeas, k.singular, k.verified) == (p.pfeas, p.dfeas, p.singular,
+                                                          p.verified)
+    assert k.singular == (case in ("repeated", "zero_pivot"))
+    assert k.verified == (case == "optimal")
+    close = lambda a, b: np.all((a == b) | (np.isnan(a) & np.isnan(b))
+                                | (np.abs(a - b) <= 1e-12 * np.maximum(1.0, np.abs(b))))
+    with np.errstate(invalid="ignore"):
+        assert close(np.array([k.obj]), np.array([p.obj])) and close(k.x, p.x)
+        assert close(k.xB, p.xB) and close(k.y, p.y)
+    if not k.singular:
+        assert np.abs(k.Binv @ A[:, basis] - np.eye(m)).max() <= 1e-10
+
+
+@pytest.mark.parametrize("shape", [(60, 150, 11), (250, 760, 11)])
+def test_basis_kernel_grid_independent(cuda, shape):
+    """One block, a grid of 3 and the default grid give the same bits, as do
+    two runs and the launch with B⁻¹; one row of B⁻¹ alone (`row`, on the
+    default grid and on one block) is that row of the whole, bit for bit."""
+    can, basis, vstat = _solved_basis(*shape)
+    args = _basis_args(cuda, can, basis, vstat)
+    outs = [basis_f64.basis_kernel_call(*args, 1, blocks=g) for g in (None, None, 1, 3)]
+    inv = basis_f64.basis_kernel_call(*args, 1, inverse=True)
+    m, size = can.M, basis_f64.packed_size(can.M, can.N)
+    bits = lambda t: t.view(torch.int64)
+    for other in outs[1:] + [inv[:size]]:
+        assert torch.equal(bits(outs[0]), bits(other))
+    for k, g in ((0, None), (m // 2, 1), (m - 1, None)):
+        one = basis_f64.basis_kernel_call(*args, 1, row=k, blocks=g)
+        assert one.numel() == size + m
+        assert torch.equal(bits(one[:size]), bits(outs[0]))
+        assert torch.equal(bits(one[size:]), bits(inv[size + k * m:size + (k + 1) * m]))
+
+
+def test_basis_wrapper_raises_on_what_it_does_not_take(cuda):
+    can, basis, vstat = _solved_basis()
+    args = _basis_args(cuda, can, basis, vstat)
+    with pytest.raises(ValueError):
+        basis_f64.basis_kernel_call(args[0].float(), *args[1:], 1)
+    with pytest.raises(ValueError):
+        basis_f64.basis_kernel_call(*args[:5], args[5].cpu(), args[6], 1)
+    with pytest.raises(ValueError):
+        basis_f64.basis_kernel_call(*args, 1, blocks=0)
+
+
+@pytest.mark.parametrize("options", [{}, {"use_streaming": "always", "use_megakernel": "never"}],
+                         ids=["k1", "k2"])
+def test_card_solve_certifies_its_basis_on_the_card(cuda, monkeypatch, options):
+    """A card solve factors its final basis once, on the card (the route's
+    check serves the state and `certify`), and B⁻¹ once more; no host
+    factorization of it."""
+    def host_check(*args, **kw):
+        raise AssertionError("a card solve factored its final basis on the host")
+
+    for mod, name in ((bs, "_verify_f64"), (ss, "_verify_f64"), (hostlp, "factorize_basis")):
+        monkeypatch.setattr(mod, name, host_check)
+    prob = netlib_shaped_problem(70, 150, 0.08, seed=2)
+    prob.options = SolverOptions(**options)
+    cpu = netlib_shaped_problem(70, 150, 0.08, seed=2)
+    cpu.options = SolverOptions(device="cpu")
+    before = basis_f64.launches
+    sol = prob.solve()
+    assert sol._engine.certified and basis_f64.launches == before + 1
+    want = cpu.solve().objective()
+    assert abs(sol.objective() - want) <= 1e-9 * (1.0 + abs(want))
+    binv = np.asarray(sol._engine.state.Binv)
+    assert basis_f64.launches == before + 2
+    B = sol._engine.can.A[:, np.asarray(sol._engine._state.basis)]
+    assert binv.flags.c_contiguous and np.abs(binv @ B - np.eye(B.shape[0])).max() <= 1e-10
+
+
+def test_card_resolves_certify_on_the_card(cuda, monkeypatch):
+    """Warm re-solves on the card (host route and K1 warm): each node
+    certified by the basis kernel, none on the host."""
+    from minilp_tpu_torch.utils.node_chain import run_chain
+
+    def host_check(*args, **kw):
+        raise AssertionError("a card re-solve factored its final basis on the host")
+
+    monkeypatch.setattr(driver.hostlp, "factorize_basis", host_check)
+    monkeypatch.setattr(bs, "_verify_f64", host_check)
+    for options in ({}, {"use_megakernel": "always"}):
+        prob = netlib_shaped_problem(60, 150, 0.06, seed=11)
+        prob.options = SolverOptions(**options)
+        before = basis_f64.launches
+        nodes = run_chain(prob.solve())
+        done = [n for n in nodes if n.outcome == "optimal"]
+        assert done and all(n.certified for n in done)
+        assert basis_f64.launches - before >= 1 + len(done)
