@@ -2286,8 +2286,11 @@ def phases(torch, highs) -> int:
     from minilp_tpu_torch.ops.kernels import batched_simplex as bs, build
     from minilp_tpu_torch.engine.driver import streaming_options
     from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
-    from minilp_tpu_torch.utils import k1_split, k2_split
+    from minilp_tpu_torch.utils import k1_split, k2_split, profiling
     from minilp_tpu_torch.utils.synth import netlib_shaped_problem, random_batch
+
+    # the stages it logs are synchronised spans, the device stages included
+    profiling.enable()
 
     if pathlib.Path(minilp_tpu_torch.__file__).resolve().parent != HERE / "minilp_tpu_torch":
         raise RuntimeError(f"imported {minilp_tpu_torch.__file__}, not this checkout's package")

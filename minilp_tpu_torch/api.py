@@ -36,6 +36,7 @@ from dataclasses import dataclass
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 from .options import DEFAULT_OPTIONS, SolverOptions
+from .utils import profiling
 
 
 # --------------------------------------------------------------------------------------
@@ -236,6 +237,7 @@ class Problem:
         self._constraints: List[Tuple[List[Tuple[int, float]], ComparisonOp, float]] = []
 
     # -- construction ------------------------------------------------------------
+    @profiling.summed("api")
     def add_var(
         self,
         obj_coeff: float,
@@ -251,6 +253,7 @@ class Problem:
         self._hi.append(hi)
         return v
 
+    @profiling.summed("api")
     def add_constraint(self, expr, op: ComparisonOp, rhs: float) -> None:
         """Add the constraint ``expr op rhs`` (`Problem::add_constraint` [API]).
 
@@ -284,9 +287,10 @@ class Problem:
         Equivalent of `Problem::solve` → `Solver::try_new` + `optimize`
         (SURVEY.md §4.1 call stack).
         """
-        from .engine import driver  # local import: engine pulls in torch
+        from .engine import driver  # local import: engine pulls in the kernels
 
-        return driver.solve_problem(self)
+        with profiling.request("solve"):
+            return driver.solve_problem(self)
 
 
 # --------------------------------------------------------------------------------------
@@ -339,22 +343,26 @@ class Solution:
             expr = LinearExpr.from_term(1.0, expr)
         elif not isinstance(expr, LinearExpr):
             expr = LinearExpr(expr)
-        return self._engine.add_constraint(self, expr.terms(), op, float(rhs))
+        with profiling.request("resolve"):
+            return self._engine.add_constraint(self, expr.terms(), op, float(rhs))
 
     def fix_var(self, var: Variable, val: float) -> "Solution":
         """Temporarily fix ``var`` to ``val`` and re-optimize (warm-started).
         (`Solution::fix_var` [API]).  Raises `Infeasible` when no feasible point
         has ``var == val``."""
-        return self._engine.fix_var(self, var.idx, float(val))
+        with profiling.request("resolve"):
+            return self._engine.fix_var(self, var.idx, float(val))
 
     def unfix_var(self, var: Variable) -> Tuple[bool, "Solution"]:
         """Undo `fix_var`: restore the variable's original bounds and re-optimize.
         Returns ``(changed, solution)`` where ``changed`` says whether the optimal
         objective moved (`Solution::unfix_var` returning a flag [API])."""
-        return self._engine.unfix_var(self, var.idx)
+        with profiling.request("resolve"):
+            return self._engine.unfix_var(self, var.idx)
 
     def add_gomory_cut(self, var: Variable) -> "Solution":
         """Derive a Gomory mixed-integer cut from the basic row of ``var``
         (which must be basic with a fractional value), append it, and re-optimize
         via dual simplex (`Solution::add_gomory_cut` [API], SURVEY.md §3.2)."""
-        return self._engine.add_gomory_cut(self, var.idx)
+        with profiling.request("resolve"):
+            return self._engine.add_gomory_cut(self, var.idx)

@@ -25,8 +25,8 @@ reference pins it there.  Differences from the reference, named:
   off a TPU), and its `device=` keyword runs its logic on any device;
 * no `except Exception` around the device stage: a fault there fails the
   solve instead of handing over to the host stage;
-* the stage timer and counter `crossover_pdhg_tpu_s` / `_iters` are
-  `crossover_pdhg_device_s` / `crossover_pdhg_device_iters`.
+* the stage timer `crossover_pdhg_tpu_s` is gone (nothing read it), and
+  its counter `crossover_pdhg_tpu_iters` is `crossover_pdhg_device_iters`.
 
 `identify_basis` and `kkt_error_f64` are numpy and scipy, carried over.
 """
@@ -363,9 +363,7 @@ def solve_cold_crossover(can, opts: SolverOptions) -> Optional[hostlp.HostResult
     tol = max(float(opts.crossover_tol), float(opts.feas_tol))
     p_opts = dataclasses.replace(opts, feas_tol=tol, pdhg_matrix="sparse")
     dev_result = None
-    solve_dev = torch.device(opts.device)
-    with profiling.stage("crossover_pdhg_device_s", solve_dev):
-        dev = _device_pdhg_stage(can, opts, tol)
+    dev = _device_pdhg_stage(can, opts, tol)
     if dev is not None:
         x_d, y_d, dev_iters, err_d, _omega_d = dev
         profiling.bump_stage("crossover_pdhg_device_iters", dev_iters)
@@ -382,7 +380,7 @@ def solve_cold_crossover(can, opts: SolverOptions) -> Optional[hostlp.HostResult
             err=dev_result[3], status=int(Status.OPTIMAL),
         )
     else:
-        with profiling.stage("crossover_pdhg_s"):
+        with profiling.span("crossover_pdhg", host=True):
             A_csr = torch.as_tensor(np.asarray(can.A, np.float64)).to_sparse_csr()
             state0 = None if dev is None else warm_state(*dev[:2], dev[2], dev[3], dev[4])
             cpu = lambda v: torch.as_tensor(np.asarray(v, np.float64))
@@ -402,12 +400,12 @@ def solve_cold_crossover(can, opts: SolverOptions) -> Optional[hostlp.HostResult
     y = np.asarray(pstate.y, dtype=np.float64)
     A = np.asarray(can.A, dtype=np.float64)
     d = np.asarray(can.c, dtype=np.float64) - y @ A
-    with profiling.stage("crossover_identify_s"):
+    with profiling.span("crossover_identify", host=True):
         basis, vstat = identify_basis(
             A, can.lo, can.hi, x, d, np.asarray(can.basis0),
             A_csc=can.csc(),
         )
-    with profiling.stage("crossover_polish_s"):
+    with profiling.span("crossover_polish", host=True):
         res = hostlp.solve_host_sparse(
             can.A, can.b, can.c, can.lo, can.hi, basis, vstat, opts=opts,
             A_csc=can.csc(),

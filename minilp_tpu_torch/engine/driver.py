@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
-import time
 from typing import Dict, Tuple
 
 import numpy as np
@@ -114,8 +113,9 @@ def _device_A(can: CanonicalLP, dev: torch.device) -> torch.Tensor:
     key = (dev, _A_version(can))
     cached = getattr(can, "_A_dev", None)
     if cached is None or cached[0] != key:
-        cached = (key, torch.as_tensor(np.ascontiguousarray(can.A, dtype=np.float64),
-                                       device=dev))
+        A = np.ascontiguousarray(can.A, dtype=np.float64)
+        with profiling.span("upload", dev):
+            cached = (key, torch.as_tensor(A, device=dev))
         can._A_dev = cached
     return cached[1]
 
@@ -138,10 +138,12 @@ def _launch_certificate(can: CanonicalLP, basis, vstat, opts: SolverOptions, **k
     from ..ops.kernels import basis_f64
 
     dev = _device(opts)
+    A = _device_A(can, dev)
     put = lambda v, dt: torch.as_tensor(np.ascontiguousarray(v, dtype=dt), device=dev)
-    f64 = [put(v, np.float64) for v in (can.b, can.c, can.lo, can.hi)]
-    return basis_f64.certificate(_device_A(can, dev), *f64, put(basis, np.int32),
-                                 put(vstat, np.int32), int(Status.OPTIMAL), **kw)
+    with profiling.span("upload", dev):
+        vecs = [put(v, np.float64) for v in (can.b, can.c, can.lo, can.hi)]
+        vecs += [put(basis, np.int32), put(vstat, np.int32)]
+    return basis_f64.certificate(A, *vecs, int(Status.OPTIMAL), **kw)
 
 
 def _basis_certificate(can: CanonicalLP, basis, vstat, opts: SolverOptions, *,
@@ -225,30 +227,30 @@ class EngineHandle:
             return
         can = self.can
         basis = np.asarray(self._state.basis)
-        if _certify_on_device(self.opts):
-            t0 = time.perf_counter()
-            Binv = _basis_certificate(can, basis, self._state.vstat, self.opts,
-                                      inverse=True).Binv
-            # the handle's own copy: the certificate stays as it was
-            Binv = None if Binv is None else Binv.copy()
-        else:
-            A = can.A.astype(np.float64)
-            t0 = time.perf_counter()
-            if can.M >= _SPARSE_HOST_M:
-                lu = hostlp.factorize_basis(A, basis, A_csc=can.csc())
-                Binv = None if lu is None else lu.lu.solve(np.eye(can.M))
+        on_device = _certify_on_device(self.opts)
+        with profiling.span("state_rebuild", host=not on_device):
+            if on_device:
+                Binv = _basis_certificate(can, basis, self._state.vstat, self.opts,
+                                          inverse=True).Binv
+                # the handle's own copy: the certificate stays as it was
+                Binv = None if Binv is None else Binv.copy()
             else:
-                try:
-                    Binv = np.linalg.inv(A[:, basis])
-                except np.linalg.LinAlgError:
-                    Binv = None
-        if Binv is None:
-            # certified bases are nonsingular; an identity seed keeps the
-            # handle usable and a warm restart's Newton telltale catches it
-            Binv = np.eye(can.M)
-        self._state = self._state._replace(Binv=np.asarray(Binv, dtype=_np_dtype(self.opts)))
+                A = can.A.astype(np.float64)
+                if can.M >= _SPARSE_HOST_M:
+                    lu = hostlp.factorize_basis(A, basis, A_csc=can.csc())
+                    Binv = None if lu is None else lu.lu.solve(np.eye(can.M))
+                else:
+                    try:
+                        Binv = np.linalg.inv(A[:, basis])
+                    except np.linalg.LinAlgError:
+                        Binv = None
+            if Binv is None:
+                # certified bases are nonsingular; an identity seed keeps the
+                # handle usable and a warm restart's Newton telltale catches it
+                Binv = np.eye(can.M)
+            self._state = self._state._replace(
+                Binv=np.asarray(Binv, dtype=_np_dtype(self.opts)))
         self.binv_stale = False
-        profiling.record_stage("state_rebuild_s", time.perf_counter() - t0)
 
     # -- accessors ---------------------------------------------------------------
     def _x_full(self) -> np.ndarray:
@@ -266,7 +268,7 @@ class EngineHandle:
     def certify(self, tol: float = 1e-7) -> bool:
         """Recompute the vertex exactly in f64 from (basis, vstat) and check
         primal + dual feasibility; on success the handle serves exact values."""
-        with profiling.stage("certify_s"):
+        with profiling.span("certify", host=not _certify_on_device(self.opts)):
             return self._certify_timed(tol)
 
     def _certify_timed(self, tol: float = 1e-7) -> bool:
@@ -392,7 +394,7 @@ def _maybe_presolve(problem: "api.Problem") -> "api.Problem":
         return problem
     from ..presolve import presolve_problem
 
-    with profiling.stage("presolve_s"):
+    with profiling.span("presolve", host=True):
         reduced, _stats = presolve_problem(problem)
     return reduced
 
@@ -419,12 +421,15 @@ def _solve_problem_pdhg(problem: "api.Problem") -> "api.Solution":
     problem = _maybe_presolve(problem)
     can = canonicalize(problem, dtype=_np_dtype(opts))
     put = lambda v: torch.as_tensor(np.asarray(v), device=dev)
-    args = (put(can.b), put(can.c), put(can.lo), put(can.hi))
-    with records.timed() as t:
+    with profiling.span("upload", dev):
+        args = (put(can.b), put(can.c), put(can.lo), put(can.hi))
+    with _route("pdhg") as route:
+        with profiling.span("upload", dev):
+            amat = put(can.A)
         if _use_sparse_pdhg(can.A, opts):
-            solver, amat = solve_pdhg_sparse, put(can.A).to_sparse_csr()
+            solver, amat = solve_pdhg_sparse, amat.to_sparse_csr()
         else:
-            solver, amat = solve_pdhg, put(can.A)
+            solver = solve_pdhg
         pstate = solver(amat, *args, opts=opts)
         status = int(pstate.status)
     handle = PdhgHandle(can, pstate, problem, opts)
@@ -435,7 +440,7 @@ def _solve_problem_pdhg(problem: "api.Problem") -> "api.Solution":
             iterations=int(pstate.niter),
             objective=(handle.user_objective()
                        if status == Status.OPTIMAL else None),
-            wall_s=t.wall_s, backend=dev.type, dtype=opts.dtype,
+            wall_s=route.wall_s, backend=dev.type, dtype=opts.dtype,
         ))
     if status == Status.MAX_ITER:
         raise api.SolverFailure(
@@ -471,12 +476,20 @@ def _state_from_certified_basis(
     check's when it made one; `lu`, a host route's factors, is then not
     used), a host LU otherwise.  The dense B⁻¹ is a (0, 0) placeholder that `EngineHandle.ensure_binv`
     fills on first access.  Returns None on a singular basis (caller falls
-    back)."""
-    t_rebuild = time.perf_counter()
-    if _certify_on_device(opts):
-        cert = _basis_certificate(can, basis, vstat, opts)
-        if cert.singular:
+    back).  Its host part is the host span `state_rebuild_host`."""
+    with profiling.span("state_rebuild"):
+        cert = _basis_certificate(can, basis, vstat, opts) if _certify_on_device(opts) else None
+        if cert is not None and cert.singular:
             return None
+        with profiling.span("state_rebuild_host", host=True):
+            return _state_from_basis(can, basis, vstat, niter, opts, lu, cert)
+
+
+def _state_from_basis(can: CanonicalLP, basis, vstat, niter: int, opts: SolverOptions,
+                      lu, cert) -> SimplexState | None:
+    """`_state_from_certified_basis`'s host part: (xB, d, obj) from the
+    card's certificate `cert`, else from a host LU."""
+    if cert is not None:
         xB, d, obj = cert.xB.copy(), cert.d.copy(), cert.obj
     else:
         A = can.A.astype(np.float64)
@@ -514,7 +527,6 @@ def _state_from_certified_basis(
         weights=np.ones_like(d.astype(dtype)),
         phase=np.int32(2),
     )
-    profiling.record_stage("state_rebuild_s", time.perf_counter() - t_rebuild)
     return state
 
 
@@ -538,7 +550,7 @@ def _host_polish_from_basis(
         (int(Status.OPTIMAL), int(Status.INFEASIBLE), int(Status.UNBOUNDED))
         if accept_any_terminal else (int(Status.OPTIMAL),)
     )
-    with profiling.stage("host_polish_s"):
+    with profiling.span("host_polish", host=True):
         res = hostlp.solve_host_sparse(
             can.A, can.b, can.c, can.lo, can.hi, basis, vstat, opts=opts,
             A_csc=can.csc() if can.M >= _SPARSE_HOST_M else None,
@@ -585,11 +597,13 @@ def _try_megakernel_solve(can: CanonicalLP, opts: SolverOptions,
     if warm_state is not None:
         warm_state = tuple(np.asarray(x)[None] for x in warm_state)
     lp = [x[None] for x in (can.A, can.b, can.c, can.lo, can.hi)]
-    with profiling.stage("megakernel_s", dev):
+    with profiling.span("megakernel", dev):
         # f32 on the device; the exact f64 check of the basis on the card
         # (the basis kernel) for a card solve, else on the host
+        with profiling.span("upload", dev):
+            inputs = upload(dev, *lp, dtype=np.float32)
         rows = megakernel_rows(
-            *upload(dev, *lp, dtype=np.float32),
+            *inputs,
             slack0=can.nv,
             max_iter=opts.effective_max_iter(can.M, can.N),
             warm_state=warm_state,
@@ -690,7 +704,9 @@ def _try_streaming_solve(can: CanonicalLP, opts: SolverOptions,
     ):
         # a basis after many f32 pivots is normally a few exact pivots from
         # optimal: the polish banks the device's work
+        profiling.bump_stage("route.streaming.polished")
         return _host_polish_from_basis(can, basis, vstat, opts, niter0=int(res.niter))
+    profiling.bump_stage("route.streaming.declined")
     return None
 
 
@@ -700,7 +716,8 @@ def _solve_engine(can: CanonicalLP, opts: SolverOptions) -> SimplexState:
     dev = _device(opts)
     dt = torch.float64 if opts.dtype == "float64" else torch.float32
     put = lambda v: torch.as_tensor(np.asarray(v), dtype=dt, device=dev)
-    args = (put(can.A), put(can.b), put(can.c), put(can.lo), put(can.hi))
+    with profiling.span("upload", dev):
+        args = (put(can.A), put(can.b), put(can.c), put(can.lo), put(can.hi))
     state = solve_canonical(*args, can.vstat0, can.basis0, opts=opts)
     if int(state.status) == int(Status.NUMERICAL):
         # Rare: the Newton refresh diverged.  Rebuild the inverse exactly
@@ -724,18 +741,18 @@ def solve_problem(problem: "api.Problem") -> "api.Solution":
     user_problem = problem
     problem = _maybe_presolve(problem)
 
-    with profiling.stage("canonicalize_s"):
+    with profiling.span("canonicalize", host=True):
         can = canonicalize(
             problem,
             extra_row_capacity=opts.row_capacity_slack,
             dtype=_np_dtype(opts),
         )
     if _megakernel_eligible(can, opts):
-        with records.timed() as t:
+        with _route("megakernel") as route:
             state = _try_megakernel_solve(can, opts)
         if state is not None:
             _emit_record("cold_solve_megakernel", can, state,
-                         int(Status.OPTIMAL), t.wall_s, opts)
+                         int(Status.OPTIMAL), route.wall_s, opts)
             handle = EngineHandle(can, state, problem, opts)
             handle.certify()
             return api.Solution(handle, user_problem)
@@ -748,7 +765,7 @@ def solve_problem(problem: "api.Problem") -> "api.Solution":
         # path below this size and the warm-restart path at every size.
         from .crossover import solve_cold_crossover
 
-        with records.timed() as t:
+        with _route("crossover") as route:
             res = solve_cold_crossover(can, opts)
         if res is not None:
             status = int(res.status)
@@ -759,7 +776,7 @@ def solve_problem(problem: "api.Problem") -> "api.Solution":
                 state = state._replace(status=np.int32(status))
             if state is not None:
                 _emit_record("cold_solve_crossover", can, state, status,
-                             t.wall_s, opts)
+                             route.wall_s, opts)
                 _raise_for_status(status)
                 handle = EngineHandle(can, state, problem, opts)
                 handle.certify()
@@ -767,11 +784,11 @@ def solve_problem(problem: "api.Problem") -> "api.Solution":
         # crossover declined (PDHG far from optimum / singular crash) →
         # K2, then the host engines below
     if _streaming_eligible(can, opts):
-        with records.timed() as t:
+        with _route("streaming") as route:
             state = _try_streaming_solve(can, opts)
         if state is not None:
             _emit_record("cold_solve_streaming", can, state,
-                         int(Status.OPTIMAL), t.wall_s, opts)
+                         int(Status.OPTIMAL), route.wall_s, opts)
             handle = EngineHandle(can, state, problem, opts)
             handle.certify()
             return api.Solution(handle, user_problem)
@@ -780,22 +797,22 @@ def solve_problem(problem: "api.Problem") -> "api.Solution":
         # Above the kernels' envelope with the crossover declined: the host
         # sparse engine cold (splu; the f64 torch engine on the CPU as its
         # fallback).
-        with records.timed() as t:
+        with _route("host") as route:
             state = _host_polish_from_basis(
                 can, np.asarray(can.basis0), np.asarray(can.vstat0), opts,
                 niter0=0, accept_any_terminal=True,
             )
         if state is not None:
             status = int(state.status)
-            _emit_record("cold_solve_host", can, state, status, t.wall_s, opts)
+            _emit_record("cold_solve_host", can, state, status, route.wall_s, opts)
             _raise_for_status(status)
             handle = EngineHandle(can, state, problem, opts)
             handle.certify()
             return api.Solution(handle, user_problem)
-    with records.timed() as t:
+    with _route("engine") as route:
         state = _solve_engine(can, opts)
         status = int(state.status)
-    _emit_record("cold_solve", can, state, status, t.wall_s, opts)
+    _emit_record("cold_solve", can, state, status, route.wall_s, opts)
     _raise_for_status(status)
     handle = EngineHandle(can, state, problem, opts)
     # Opportunistic certification for every dtype: one f64 solve against the
@@ -815,6 +832,14 @@ def solve_problem(problem: "api.Problem") -> "api.Solution":
             handle = EngineHandle(can, polished, problem, opts)
             handle.certify()
     return api.Solution(handle, user_problem)
+
+
+def _route(name: str) -> profiling.span:
+    """The span of one route of a solve, `route.<name>`, counted under the
+    same name as it is entered; its wall is the route's solve record's
+    `wall_s`."""
+    profiling.bump_stage(f"route.{name}")
+    return profiling.span(f"route.{name}")
 
 
 def _emit_record(event, can, state, status, wall_s, opts, engine="simplex"):

@@ -45,7 +45,7 @@ import torch
 from .. import api
 from ..canonical import canonicalize, slack_bounds
 from ..status import Status, VarStat
-from ..utils import records
+from ..utils import profiling
 from . import driver as _driver
 from . import hostlp
 from .dual import resolve_dual
@@ -142,7 +142,7 @@ def _try_host_resolve(handle, event: str, prefer_dual: bool = False) -> bool:
     terminal = (int(Status.OPTIMAL), int(Status.INFEASIBLE), int(Status.UNBOUNDED))
     basis0 = np.asarray(handle._state.basis)
     vstat0 = np.asarray(handle._state.vstat)
-    with records.timed() as t:
+    with _driver._route("host") as route:
         csc = can.csc() if can.M >= _driver._SPARSE_HOST_M else None
         res = None
         if prefer_dual:
@@ -171,7 +171,7 @@ def _try_host_resolve(handle, event: str, prefer_dual: bool = False) -> bool:
             if state is None:
                 return False
     shim = types.SimpleNamespace(niter=res.niter, obj=res.obj)
-    _driver._emit_record(event + "_host", can, shim, int(res.status), t.wall_s, opts)
+    _driver._emit_record(event + "_host", can, shim, int(res.status), route.wall_s, opts)
     _driver._raise_for_status(int(res.status))
     _adopt(handle, state)
     return True
@@ -197,12 +197,12 @@ def _try_megakernel_resolve(handle, event: str) -> bool:
     if not _driver._megakernel_eligible(can, handle.opts):
         return False
     warm = _warm_state(handle)
-    with records.timed() as t:
+    with _driver._route("megakernel") as route:
         state = _driver._try_megakernel_solve(can, handle.opts, warm_state=warm)
     if state is None:
         return False
     _driver._emit_record(event + "_megakernel", can, state,
-                         int(Status.OPTIMAL), t.wall_s, handle.opts)
+                         int(Status.OPTIMAL), route.wall_s, handle.opts)
     _adopt(handle, state)
     return True
 
@@ -220,12 +220,12 @@ def _try_streaming_resolve(handle, event: str) -> bool:
     if not _driver._streaming_eligible(can, handle.opts):
         return False
     warm = _warm_state(handle)
-    with records.timed() as t:
+    with _driver._route("streaming") as route:
         state = _driver._try_streaming_solve(can, handle.opts, warm_state=warm)
     if state is None:
         return False
     _driver._emit_record(event + "_streaming", can, state,
-                         int(Status.OPTIMAL), t.wall_s, handle.opts)
+                         int(Status.OPTIMAL), route.wall_s, handle.opts)
     _adopt(handle, state)
     return True
 
@@ -239,16 +239,17 @@ def _run_engine_resolve(handle, event: str, run) -> None:
     dev = _driver._device(opts)
     dt = torch.float64 if opts.dtype == "float64" else torch.float32
     put = lambda v: torch.as_tensor(np.asarray(v), dtype=dt, device=dev)
-    args = (put(can.A), put(can.b), put(can.c), put(can.lo), put(can.hi))
+    with profiling.span("upload", dev):
+        args = (put(can.A), put(can.b), put(can.c), put(can.lo), put(can.hi))
     basis, vstat, Binv = _warm_state(handle)
-    with records.timed() as t:
+    with _driver._route("engine") as route:
         state = run(args, basis, vstat, put(Binv))
         if int(state.status) == int(Status.NUMERICAL):
             state = run(args, basis, vstat,
                         put(_driver._exact_inverse(can, basis, vstat, opts)))
         state = state_to_numpy(state)
         status = int(state.status)
-    _driver._emit_record(event, can, state, status, t.wall_s, opts)
+    _driver._emit_record(event, can, state, status, route.wall_s, opts)
     _driver._raise_for_status(status)
     _adopt(handle, state)
 

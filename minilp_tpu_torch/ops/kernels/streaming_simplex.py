@@ -57,7 +57,6 @@ objectives agree.
 from __future__ import annotations
 
 import ctypes
-import time
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -809,12 +808,14 @@ def prepare_launch(
                 vstat0,
                 np.full(n_pad - vstat0.shape[0], int(VarStat.FIXED), np.int32),
             ])
-        warm = (up(basis0, np.int32), up(vstat0, np.int32), up(Binv0, np.float32))
-    with profiling.stage("stream_prep_s", dev):
+        with profiling.span("upload", dev):
+            warm = (up(basis0, np.int32), up(vstat0, np.int32), up(Binv0, np.float32))
+    with profiling.span("stream_prep", dev):
         # host transpose + upload of Aᵀ: a real cold-wall term, attributed
         # apart from the first launch
-        args = tuple([up(np.ascontiguousarray(A.T), np.float32)]
-                     + [up(x, np.float32) for x in (b, c, lo, hi)])
+        host = [np.ascontiguousarray(x, dtype=np.float32) for x in (A.T, b, c, lo, hi)]
+        with profiling.span("upload", dev):
+            args = tuple(torch.tensor(x, device=dev) for x in host)
     if chunk_iters == "auto":
         chunk_iters = 32768 if m <= 1024 else 8192
     chunk = max_iter if chunk_iters is None else min(int(chunk_iters), max_iter)
@@ -850,19 +851,17 @@ def solve_streaming(A, b, c, lo, hi, *, A_f64: Optional[torch.Tensor] = None,
     tracker = SurrenderTracker(kw["feas_tol"])
     first_launch = True
     while True:
-        t_launch = time.perf_counter()
-        out = stream_kernel_call(*launch.args, warm, **kw)
-        # the one device-to-host copy of a chunk: its packed monitor scalars
-        mon = out.monitor.cpu()
+        # the first launch carries the kernel build and one-time costs
+        with profiling.span("stream_first_launch" if first_launch else "stream_chunks"):
+            out = stream_kernel_call(*launch.args, warm, **kw)
+            # the one device-to-host copy of a chunk: its packed monitor scalars
+            mon = out.monitor.cpu()
         st, niter, ph = (int(v) for v in mon[:3])
         inf_now, obj_now = (float(v) for v in mon[3:5].view(torch.float32))
         total_iter += niter
+        profiling.bump_stage("stream_pivots", niter)
         profiling.bump_stage("stream_majors", int(mon[5]))
         profiling.bump_stage("stream_refreshes", int(mon[6]))
-        # the first launch carries the kernel build and one-time costs
-        profiling.record_stage(
-            "stream_first_launch_s" if first_launch else "stream_chunks_s",
-            time.perf_counter() - t_launch)
         profiling.bump_stage("stream_n_chunks")
         first_launch = False
         if st != int(Status.MAX_ITER) or total_iter >= max_iter:
@@ -872,25 +871,27 @@ def solve_streaming(A, b, c, lo, hi, *, A_f64: Optional[torch.Tensor] = None,
             break
         # relaunch warm from this chunk's device-resident state
         warm = (out.basis, out.vstat, out.Binv)
+    profiling.begin("finish")
     basis = out.basis.cpu().numpy()
     vstat = out.vstat.cpu().numpy()
     status = np.int32(Status.NUMERICAL) if surrender else np.int32(st)
     dev = out.basis.device
-    t_verify = time.perf_counter()
     cert = None
-    if dev.type == "cuda":
-        # the unpadded LP (the padding columns are inert FIXED at 0)
-        put = lambda v: torch.as_tensor(np.ascontiguousarray(v, dtype=np.float64), device=dev)
-        cert = basis_f64.certificate(put(A) if A_f64 is None else A_f64, put(b),
-                                     *(put(v[:n]) for v in (c, lo, hi)),
-                                     out.basis, out.vstat[:n], int(status))
-        obj, verified, x = cert.obj, cert.verified, cert.x
-    else:
-        obj, verified, x = (v[0] for v in _verify_f64(
-            launch.A[None], launch.b[None], launch.c[None], launch.lo[None],
-            launch.hi[None], basis[None], vstat[None], np.asarray(status)[None],
-        ))
-    profiling.record_stage("stream_verify_s", time.perf_counter() - t_verify)
+    with profiling.span("stream_verify"):
+        if dev.type == "cuda":
+            # the unpadded LP (the padding columns are inert FIXED at 0)
+            put = lambda v: torch.as_tensor(np.ascontiguousarray(v, dtype=np.float64),
+                                            device=dev)
+            with profiling.span("upload", dev):
+                inputs = (put(A) if A_f64 is None else A_f64, put(b),
+                          *(put(v[:n]) for v in (c, lo, hi)))
+            cert = basis_f64.certificate(*inputs, out.basis, out.vstat[:n], int(status))
+            obj, verified, x = cert.obj, cert.verified, cert.x
+        else:
+            obj, verified, x = (v[0] for v in _verify_f64(
+                launch.A[None], launch.b[None], launch.c[None], launch.lo[None],
+                launch.hi[None], basis[None], vstat[None], np.asarray(status)[None],
+            ))
     return StreamResult(
         basis=basis, vstat=vstat[:n], status=status, niter=np.int32(total_iter),
         obj=obj, verified=verified, x=x[:n], cert=cert,

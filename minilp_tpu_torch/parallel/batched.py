@@ -23,7 +23,6 @@ as its plain torch version).
 
 from __future__ import annotations
 
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -120,11 +119,12 @@ def solve_batch_certified(A, b, c, lo, hi, *, device="cuda", slack0=None,
     f64 recompute of each discovered basis on the same device; the rare
     lanes whose basis fails the certificate are re-solved on the host
     (scipy-HiGHS), so the returned `verified` mask is all-True unless a lane
-    is pathological.
+    is pathological.  One call is one request (`profiling.request`).
     """
-    res = solve_batch_megakernel(A, b, c, lo, hi, device=device, slack0=slack0,
-                                 max_iter=max_iter)
-    return resolve_unverified_host(res, A, b, c, lo, hi)
+    with profiling.request("batch_call"):
+        res = solve_batch_megakernel(A, b, c, lo, hi, device=device, slack0=slack0,
+                                     max_iter=max_iter)
+        return resolve_unverified_host(res, A, b, c, lo, hi)
 
 
 def _host_f64(x, pinned: bool) -> torch.Tensor:
@@ -186,8 +186,9 @@ def solve_batches_pipelined(
     (`scheduling.difficulty_scores`) before packing, so that lockstep packs
     idle less on stragglers; results are un-permuted before returning.
 
-    Stage timers (`utils.profiling`): `batch_prep_s` (the prefetch thread's
-    copy into pinned memory and enqueue), `batch_wait_s` (the host blocked on
+    One call is one request ("batch_call", `utils.profiling`).  Its spans:
+    `batch_prep_s` (the prefetch thread's copy into pinned memory and
+    enqueue), `batch_wait_s` (the host blocked on
     a batch's results), `batch_verify_s` (the certificate's call on the host
     clock: on a card its checks and enqueue only, on the CPU the whole plain
     version), `batch_resolve_s` and the counter `batch_resolved` (HiGHS
@@ -200,31 +201,30 @@ def solve_batches_pipelined(
     side = torch.cuda.Stream(dev) if on_card else None
     event = lambda: torch.cuda.Event(enable_timing=True)
 
-    def prep(batch):
+    def prep(batch, request):
         """The f64 copy into pinned memory and the upload of one batch (on
-        the prefetch thread)."""
-        t0 = time.perf_counter()
-        A, b, c, lo, hi = batch
-        B, m, n = A.shape
-        if B % pack != 0:
-            raise ValueError(f"batch {B} not divisible by pack {pack}")
-        order = None
-        if sort_packs:
-            order = sort_for_packing(difficulty_scores(A, b, c, lo, hi, slack0=slack0))
-            A, b, c, lo, hi = A[order], b[order], c[order], lo[order], hi[order]
-        A_in = A if structural_cols is None else A[:, :, :structural_cols]
-        host = [_host_f64(x, on_card) for x in (A_in, b, c, lo, hi)]
-        up = None
-        if on_card:
-            up = (event(), event())
-            with torch.cuda.stream(side):
-                up[0].record(side)
-                args = [h.to(dev, non_blocking=True) for h in host]
-                up[1].record(side)
-        else:
-            args = host
-        profiling.record_stage("batch_prep_s", time.perf_counter() - t0)
-        return dict(order=order, args=args, host=host, up=up)
+        the prefetch thread, in the call's `request`)."""
+        with profiling.within(request), profiling.span("batch_prep"):
+            A, b, c, lo, hi = batch
+            B, m, n = A.shape
+            if B % pack != 0:
+                raise ValueError(f"batch {B} not divisible by pack {pack}")
+            order = None
+            if sort_packs:
+                order = sort_for_packing(difficulty_scores(A, b, c, lo, hi, slack0=slack0))
+                A, b, c, lo, hi = A[order], b[order], c[order], lo[order], hi[order]
+            A_in = A if structural_cols is None else A[:, :, :structural_cols]
+            host = [_host_f64(x, on_card) for x in (A_in, b, c, lo, hi)]
+            up = None
+            if on_card:
+                up = (event(), event())
+                with torch.cuda.stream(side):
+                    up[0].record(side)
+                    args = [h.to(dev, non_blocking=True) for h in host]
+                    up[1].record(side)
+            else:
+                args = host
+            return dict(order=order, args=args, host=host, up=up)
 
     def launch(staged, batch):
         A, b, c, lo, hi = batch
@@ -243,12 +243,11 @@ def solve_batches_pipelined(
             max_iter=max_iter, refactor_period=32, feas_tol=1e-5, opt_tol=1e-6,
             pivot_tol=1e-6, bland_after=200,
         )
-        t0 = time.perf_counter()
-        if on_card:
-            run[1].record()
-            verify[0].record()
-        packed = certify.certify_out(out, A64, *vecs)
-        profiling.record_stage("batch_verify_s", time.perf_counter() - t0)
+        with profiling.span("batch_verify"):
+            if on_card:
+                run[1].record()
+                verify[0].record()
+            packed = certify.certify_out(out, A64, *vecs)
         if on_card:
             verify[1].record()
             res = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
@@ -264,14 +263,13 @@ def solve_batches_pipelined(
     def finalize(batch, staged):
         A, b, c, lo, hi = batch
         B, m, n = A.shape
-        t0 = time.perf_counter()
-        if staged["done"] is not None:
-            staged["done"].synchronize()
-            for name, (start, stop) in (("batch_upload_dev_s", staged["up"]),
-                                        ("batch_kernel_dev_s", staged["run"]),
-                                        ("batch_verify_dev_s", staged["verify"])):
-                profiling.record_stage(name, start.elapsed_time(stop) / 1e3)
-        profiling.record_stage("batch_wait_s", time.perf_counter() - t0)
+        with profiling.span("batch_wait"):
+            if staged["done"] is not None:
+                staged["done"].synchronize()
+                for name, (start, stop) in (("batch_upload_dev_s", staged["up"]),
+                                            ("batch_kernel_dev_s", staged["run"]),
+                                            ("batch_verify_dev_s", staged["verify"])):
+                    profiling.record_stage(name, start.elapsed_time(stop) / 1e3)
         buf = staged["res"].numpy()
         order = staged["order"]
         if order is not None:
@@ -280,18 +278,19 @@ def solve_batches_pipelined(
             inv[order] = np.arange(order.size)
             buf = buf[inv]
         res = BatchResult(*certify.host_fields(buf, m, n))
-        with profiling.stage("batch_resolve_s"):
+        with profiling.span("batch_resolve", host=True):
             profiling.bump_stage("batch_resolved", int((~res.verified).sum()))
             return resolve_unverified_host(res, A, b, c, lo, hi)
 
     results = []
     prev = None
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        fut = pool.submit(prep, batches[0])
+    with profiling.request("batch_call"), ThreadPoolExecutor(max_workers=1) as pool:
+        request = profiling.current()
+        fut = pool.submit(prep, batches[0], request)
         for k, batch in enumerate(batches):
             staged = fut.result()
             if k + 1 < len(batches):
-                fut = pool.submit(prep, batches[k + 1])  # overlap the next upload
+                fut = pool.submit(prep, batches[k + 1], request)  # overlap the next upload
             staged = launch(staged, batch)  # asynchronous on a card
             if prev is not None:
                 results.append(finalize(*prev))  # the host's tail overlaps the device

@@ -15,7 +15,6 @@ import dataclasses
 import json
 import os
 import sys
-import time
 from typing import Optional
 
 
@@ -56,15 +55,3 @@ def emit(record: SolveRecord) -> None:
     else:
         with open(target, "a") as f:
             f.write(line + "\n")
-
-
-class timed:
-    """Context manager measuring wall-clock for a solve event."""
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.wall_s = time.perf_counter() - self.t0
-        return False

@@ -206,12 +206,14 @@ def _leaves(x):
 
 def test_batched_line_carries_its_stages(small_line):
     """The batched line's `batch_stages`: the pipeline's host stages over
-    the median repetition (2 batches of 64 here, none re-solved); the
-    device stages come from CUDA events, so the CPU line has none, and
-    `chip_smoke.check_bench_line` (phase 9) refuses it for that."""
+    the median repetition (2 batches of 64 here, none re-solved), with the
+    call's root span and its self time; the device stages come from CUDA
+    events, so the CPU line has none, and `chip_smoke.check_bench_line`
+    (phase 9) refuses it for that."""
     line, _ = small_line
     stages = line["batch_stages"]
-    host = {"batch_prep_s", "batch_wait_s", "batch_verify_s", "batch_resolve_s"}
+    host = {"batch_prep_s", "batch_wait_s", "batch_verify_s", "batch_resolve_s",
+            "batch_call_s", "batch_call_self_s"}
     assert set(stages) == host | {"batch_resolved"}
     assert stages["batch_resolved"] == 0 and all(stages[k] >= 0.0 for k in host)
     assert stages["batch_verify_s"] > 0.0  # the plain certificate, whole, on the CPU

@@ -729,3 +729,44 @@ def test_card_resolves_certify_on_the_card(cuda, monkeypatch):
         done = [n for n in nodes if n.outcome == "optimal"]
         assert done and all(n.certified for n in done)
         assert basis_f64.launches - before >= 1 + len(done)
+
+
+def test_cold_solve_spans_stay_off_the_cards_timeline(cuda, monkeypatch):
+    """A cold 25fv47-shaped solve (K2, the basis kernel): under
+    `torch.profiler` its host spans are ranges on the CPU's timeline and no
+    `minilp.*` event lies on the card's; without a profiler (tracing off)
+    `profiling` synchronises nothing and keeps no span."""
+    import sys
+
+    from torch.autograd import DeviceType
+
+    from minilp_tpu_torch.utils import profiling
+
+    prob = netlib_shaped_problem(821, 1571, 0.008, seed=1)
+    prob.options = SolverOptions()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    profiling.reset_stages()
+    with torch.profiler.profile(activities=acts) as prof:
+        assert prob.solve()._engine.certified
+        torch.cuda.synchronize()
+    ours = [e for e in prof.events() if e.name.startswith("minilp.")]
+    assert {"minilp.presolve", "minilp.canonicalize"} <= {e.name for e in ours}
+    assert not [e.name for e in ours if e.device_type == DeviceType.CUDA]
+    assert any(e.device_type == DeviceType.CUDA for e in prof.events())
+    assert "stream_pivots" in profiling.stages() and profiling.spans()
+
+    calls = []
+    sync = torch.cuda.synchronize
+
+    def counted(*a, **kw):
+        calls.append(sys._getframe(1).f_code.co_filename)
+        return sync(*a, **kw)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    assert not profiling.tracing()
+    profiling.reset_stages()
+    prob = netlib_shaped_problem(821, 1571, 0.008, seed=1)
+    prob.options = SolverOptions()
+    assert prob.solve()._engine.certified
+    assert not [f for f in calls if f == profiling.__file__]
+    assert profiling.spans() == [] and "basis_dev_s" not in profiling.stages()
