@@ -35,18 +35,26 @@
 // (8 MB) and B^-1 (2.7 MB) cannot live in an SM's 227 KB of shared memory, so
 // they stay in global memory and, with the refresh scratch (3 m^2 floats,
 // 8 MB), resident in the 50 MB L2.  Shared memory holds the reduction
-// scratch, the double-buffered 128 x 16 GEMM slabs (in turn the column sums'
+// scratch, the double-buffered 16-deep GEMM slabs (in turn the column sums'
 // staged chunks and the merge's list heads) and the candidate lanes (37 KB).
 //
 // One cooperative grid of G blocks (one per SM) runs one LP.  Block 0, the
 // leader, runs the whole loop with block-uniform control flow (every loop
 // scalar comes from a block reduction), exactly as one block would.  Blocks
 // 1..G-1 are workers: they sleep on a command word in the workspace and join
-// the phases the leader posts, each of which hands out output tiles, rows
+// the phases the leader posts, each of which hands out output units, rows
 // and columns over the grid with grid barriers between dependent steps:
 // - the Newton refresh (two sweeps: 4 m x m products, 4.5 GFLOP at m = 824)
 //   and the vector recompute (x_B, y, d and the steepest-edge weights, an
-//   n x m x m product of 3.5 GFLOP);
+//   n x m x m product of 3.5 GFLOP).  Each product takes the unit shape,
+//   from 128 x 128 down to 32 x 128, with the fewest waves over the G blocks
+//   times a unit's time (`pick_unit`): at 25fv47 the Newton products run
+//   91 units of 128 x 64 (49 tiles of 128 x 128 left 83 blocks idle) and
+//   the steepest-edge product 133 tiles of 128 x 128 (whole row tiles left
+//   113 idle).  A weight's sum of squares is left per row and 128-column
+//   tile and summed over the tiles in order after a barrier.  The column
+//   sums of b_eff and of x_B's refinement stage 32-column tiles through
+//   shared memory as y's do;
 // - a major's pricing (`price`): y = c_B B^-1 or sigma B^-1 (32-column
 //   tiles of B^-1 staged through shared memory, one lane's chain a column),
 //   then Aᵀ y and the scores (a warp a row of Aᵀ); each block keeps the top
@@ -64,12 +72,9 @@
 // SM: some 45% of a major), by latency-bound chains on few blocks (y's
 // column sums on 26 of 132 blocks, the merge on one warp) and by its five
 // grid barriers and two posts, not by bytes; A is still dense in pricing
-// and W though it is about 1% full.  The refresh is bounded by the
-// largest share of one block: the steepest-edge product gives each block
-// whole 128-row tiles (19 row tiles at 25fv47), since each weight sums its
-// squares across the column tiles of its row tile in order.  The grid's
-// machinery (command word, barrier, worker loop) is shared with K1 in
-// simplex_grid.cuh.
+// and W though it is about 1% full.  The refresh is bounded by its
+// products, in waves of units over the grid.  The grid's machinery (command
+// word, barrier, worker loop) is shared with K1 in simplex_grid.cuh.
 //
 // Built with -DK2_CLOCKS, the leader also sums clock64() cycles per part of
 // a major (`streaming_simplex_clocks`).  The normal build carries no clocks.
@@ -80,20 +85,29 @@
 namespace {
 
 constexpr int kMaxK = 128;  // candidate lanes (minor_k <= kMaxK)
-// GEMM tiling: 128 x 128 output tiles, 16-deep k slabs double-buffered in
-// shared memory; each of the 512 threads (16 x 32) owns a 4 x 8 patch.
+// GEMM tiling: output units of at most 128 x 128, 16-deep k slabs
+// double-buffered in shared memory; the 512 threads (16 x 32) each own a
+// patch of PR x PC outputs, so a unit is (32 PR) x (16 PC).
 constexpr int kTM = 128, kTN = 128, kTK = 16;
-constexpr int kPR = 4, kPC = 8;
-using Patch = float[kPR][kPC];
+// The refresh's products take units of the shapes (PR, PC) = (4, 8), (4, 4),
+// (2, 8), (2, 4), (1, 8) (bits 0..4 of a mask; `pick_unit`): the Newton
+// products (4, 8), (4, 4) and (2, 4) (for m x m outputs (2, 8) never has the
+// fewest waves times cost); the steepest-edge product those of 128-column
+// tiles (16 lanes of 8 columns), the tree of its sums of squares.
+constexpr int kShapes = 5;
+constexpr unsigned kNewtonShapes = 0b01011, kSeShapes = 0b10101;
 // column sums: chunks of kCsRows rows of a 32-column tile staged in shared
 // memory, kCsPer rows by each of warps 1..15
 constexpr int kCsPer = 8, kCsRows = kCsPer * (kWarps - 1);
 
 #ifdef K2_CLOCKS
 // per part of a major: the leader's cycles summed over the launch; then the
-// majors they cover
+// majors they cover.  The refresh's parts come first: its steps as the
+// leader runs them (C_REF_SYNC: every grid barrier of the refresh, as the
+// leader waits on it), then the rest (the post and the telltale)
 enum Part {
-  C_REFRESH,
+  C_REF_GATHER, C_REF_NEWTON, C_REF_COPY, C_REF_BEFF, C_REF_Y, C_REF_MATVEC, C_REF_SE,
+  C_REF_SYNC, C_REF_OTHER,
   C_PRICE_Y, C_PRICE_YSYNC, C_PRICE_D, C_PRICE_TOP, C_PRICE_SYNC, C_MERGE, C_TABLEAU, C_TABLEAU_SYNC,
   C_MINORS,
   C_FOLD_GATHER, C_FOLD_SYNC, C_FOLD_SUM, C_FOLD_SYNC2,
@@ -115,6 +129,33 @@ __device__ unsigned long long g_clocks[kParts + 1];
       clk[(first) + k_] += sm.mark[k_] - (k_ ? sm.mark[k_ - 1] : clk_last); \
     clk_last = sm.mark[(marks) - 1];                                    \
   } while (0)
+// inside the refresh: the leader's step `part` ends here
+#define K2_RSTART() \
+  if (blockIdx.x == 0 && threadIdx.x == 0) sm.rlast = clock64()
+#define K2_RSTEP(part)                                \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {          \
+    const long long now_ = clock64();                 \
+    sm.rclk[part] += now_ - sm.rlast;                 \
+    sm.rlast = now_;                                  \
+  }
+// after the refresh: its steps into clk, the rest of it as C_REF_OTHER
+#define K2_RTAKE()                                          \
+  do {                                                      \
+    if (threadIdx.x == 0) {                                 \
+      const long long now_ = clock64();                     \
+      long long rest_ = now_ - clk_last;                    \
+      for (int k_ = 0; k_ < C_REF_OTHER; ++k_) {            \
+        clk[k_] += sm.rclk[k_];                             \
+        rest_ -= sm.rclk[k_];                               \
+        sm.rclk[k_] = 0;                                    \
+      }                                                     \
+      clk[C_REF_OTHER] += rest_;                            \
+      clk_last = now_;                                      \
+    }                                                       \
+  } while (0)
+#define K2_RZERO()                                                         \
+  if (threadIdx.x == 0)                                                    \
+    for (int k_ = 0; k_ < C_REF_OTHER; ++k_) sm.rclk[k_] = 0
 #else
 #define K2_TICK(part) \
   do {                \
@@ -124,6 +165,18 @@ __device__ unsigned long long g_clocks[kParts + 1];
   } while (0)
 #define K2_SPANS(first, marks) \
   do {                         \
+  } while (0)
+#define K2_RSTART() \
+  do {              \
+  } while (0)
+#define K2_RSTEP(part) \
+  do {                 \
+  } while (0)
+#define K2_RTAKE() \
+  do {             \
+  } while (0)
+#define K2_RZERO() \
+  do {             \
   } while (0)
 #endif
 
@@ -175,6 +228,8 @@ struct Smem {
   int cmd;              // a worker's current command
 #ifdef K2_CLOCKS
   long long mark[7];    // the leader's clock at the marks of a phase
+  long long rclk[C_REF_OTHER];  // the leader's cycles per step of a refresh
+  long long rlast;              // and its clock at the last step's end
 #endif
 };
 
@@ -194,77 +249,109 @@ struct Lp {
   float *W, *etas, *P;                // minor_k x m
   float *xB, *loB, *hiB, *cB, *beff, *y, *ratio, *tgt, *grow;  // m
   float *d, *d1, *wts, *sc, *xn;      // n
+  float* sep;                         // n x ceil(m / 128): steepest-edge partial sums
   float* lsc;                         // kMaxGrid x minor_k: each block's top scores
   int* lid;                           // kMaxGrid x minor_k: and their columns
   int* eta_rs;                        // minor_k: the leaving row of each ledger eta
   int* part;                          // kMaxGrid x 3: list length, eligible, lowest eligible
 };
 
-// C (M x N) = A (M x K) * B (K x N), walked as 128 x 128 output tiles in
-// row-tile-major order with k in order, so every output is a fixed-order fma
-// chain (zero padding past K adds nothing).  A is row-major, (i, k) at
-// A[i * lda + k]; B is (k, j) at B[k * ldb + j], or with kBT stored
-// transposed, (k, j) at B[j * ldb + k].  Each
-// slab load reads along the stored rows, and the next slab's loads are in
-// flight while the current one is multiplied.  epi(i0, j0, acc) runs in
-// every thread once per output tile, with the thread's patch at rows
-// i0 + 4 ty + a and columns j0 + 8 tx + c (ty = tid / 16, tx = tid % 16);
-// entries outside M x N hold zeros and epi skips them.  Over a grid, block
-// `rank` of `size` takes the work units rank, rank + size, ...: single tiles,
-// or with `row_units` whole row tiles, their column tiles in order.
-template <bool kBT, class Epi>
+// v = the N floats at p in shared memory, 16-byte aligned for N >= 4: the
+// four from v[4 c] on at p + c step.
+template <int N>
+__device__ __forceinline__ void lds(float (&v)[N], const float* p, int step = 4) {
+  if constexpr (N == 1) {
+    v[0] = p[0];
+  } else if constexpr (N == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < N; q += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + q / 4 * step);
+      v[q] = t.x;
+      v[q + 1] = t.y;
+      v[q + 2] = t.z;
+      v[q + 3] = t.w;
+    }
+  }
+}
+
+// C (M x N) = A (M x K) * B (K x N), walked as output units of (32 PR) x
+// (16 PC) in row-major order with k in order, so every output is the same
+// fixed-order fma chain whatever the unit (zero padding past K adds nothing).
+// A is row-major, (i, k) at A[i * lda + k]; B is (k, j) at B[k * ldb + j],
+// or with kBT stored transposed, (k, j) at B[j * ldb + k].  Each slab load
+// reads along the stored rows, and the next slab's loads are in flight while
+// the current one is multiplied.  epi(i0, j0, acc) runs in every thread once
+// per unit, with the thread's float[PR][PC] patch at rows i0 + PR ty + a and
+// columns j0 + PC tx + c (ty = tid / 16, tx = tid % 16); entries outside
+// M x N hold zeros and epi skips them.  Over a grid, block `rank` of `size`
+// takes the units rank, rank + size, ...
+template <bool kBT, int PR, int PC, class Epi>
 __device__ void gemm(const float* A, int lda, const float* B, int ldb, int M, int N,
-                     int K, Epi epi, Smem& sm, int rank = 0, int size = 1,
-                     bool row_units = false) {
-  constexpr int kPer = kTM * kTK / kThreads;  // slab elements per thread and operand
+                     int K, Epi epi, Smem& sm, int rank, int size) {
+  constexpr int TM = 32 * PR, TN = 16 * PC;
+  constexpr int kPerA = TM * kTK / kThreads, kPerB = TN * kTK / kThreads;  // per thread
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int tiles_n = (N + kTN - 1) / kTN;
-  const int tiles = ((M + kTM - 1) / kTM) * tiles_n;
+  const int tiles_n = (N + TN - 1) / TN;
+  const int tiles = ((M + TM - 1) / TM) * tiles_n;
   const int slabs = (K + kTK - 1) / kTK;
-  const int per = row_units ? tiles_n : 1;  // tiles in a work unit
-  float ra[kPer], rb[kPer];
+  float ra[kPerA], rb[kPerB];
   // element e of a slab: (row, k) of A and (k, col) of B, in load order
   auto a_at = [&](int e, int& r, int& k) {
     r = e / kTK;
     k = e % kTK;
   };
   auto b_at = [&](int e, int& k, int& cc) {
-    k = kBT ? e % kTK : e / kTN;
-    cc = kBT ? e / kTK : e % kTN;
+    k = kBT ? e % kTK : e / TN;
+    cc = kBT ? e / kTK : e % TN;
   };
-  for (int t = rank * per; t < tiles; t += (t + 1) % per == 0 ? (size - 1) * per + 1 : 1) {
-    const int i0 = (t / tiles_n) * kTM, j0 = (t % tiles_n) * kTN;
+  // where column cc of a B slab sits in shared memory: with 8 columns a
+  // thread, its first four at 4 tx and its last four at 64 + 4 tx, so that
+  // each of its two float4 reads is contiguous across the lanes (no bank
+  // conflict); with 4, in order
+  auto b_col = [](int cc) { return PC == 8 ? (cc >> 2 & 1) * 64 + (cc >> 3) * 4 + (cc & 3) : cc; };
+  for (int t = rank; t < tiles; t += size) {
+    const int i0 = (t / tiles_n) * TM, j0 = (t % tiles_n) * TN;
     auto fetch = [&](int sl) {
       const int k0 = sl * kTK;
 #pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        const int e = tid + u * kThreads;
-        int r, k, cc;
-        a_at(e, r, k);
+      for (int u = 0; u < kPerA; ++u) {
+        int r, k;
+        a_at(tid + u * kThreads, r, k);
         const int gi = i0 + r, gk = k0 + k;
         ra[u] = (gi < M && gk < K) ? A[(size_t)gi * lda + gk] : 0.f;
-        b_at(e, k, cc);
-        const int gk2 = k0 + k, gj = j0 + cc;
-        rb[u] = (gk2 < K && gj < N)
-                    ? (kBT ? B[(size_t)gj * ldb + gk2] : B[(size_t)gk2 * ldb + gj]) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kPerB; ++u) {
+        int k, cc;
+        b_at(tid + u * kThreads, k, cc);
+        const int gk = k0 + k, gj = j0 + cc;
+        rb[u] = (gk < K && gj < N)
+                    ? (kBT ? B[(size_t)gj * ldb + gk] : B[(size_t)gk * ldb + gj]) : 0.f;
       }
     };
     auto stash = [&](int buf) {
 #pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        const int e = tid + u * kThreads;
-        int r, k, cc;
-        a_at(e, r, k);
+      for (int u = 0; u < kPerA; ++u) {
+        int r, k;
+        a_at(tid + u * kThreads, r, k);
         sm.slab.g.As[buf][k][r] = ra[u];
-        b_at(e, k, cc);
-        sm.slab.g.Bs[buf][k][cc] = rb[u];
+      }
+#pragma unroll
+      for (int u = 0; u < kPerB; ++u) {
+        int k, cc;
+        b_at(tid + u * kThreads, k, cc);
+        sm.slab.g.Bs[buf][k][b_col(cc)] = rb[u];
       }
     };
-    float acc[kPR][kPC];
+    float acc[PR][PC];
 #pragma unroll
-    for (int a = 0; a < kPR; ++a)
+    for (int a = 0; a < PR; ++a)
 #pragma unroll
-      for (int c = 0; c < kPC; ++c) acc[a][c] = 0.f;
+      for (int c = 0; c < PC; ++c) acc[a][c] = 0.f;
     fetch(0);
     stash(0);
     __syncthreads();
@@ -273,15 +360,13 @@ __device__ void gemm(const float* A, int lda, const float* B, int ldb, int M, in
       if (sl + 1 < slabs) fetch(sl + 1);
 #pragma unroll
       for (int k = 0; k < kTK; ++k) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&sm.slab.g.As[buf][k][ty * kPR]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&sm.slab.g.Bs[buf][k][tx * kPC]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&sm.slab.g.Bs[buf][k][tx * kPC + 4]);
-        const float av[kPR] = {a4.x, a4.y, a4.z, a4.w};
-        const float bv[kPC] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+        float av[PR], bv[PC];
+        lds(av, &sm.slab.g.As[buf][k][ty * PR]);
+        lds(bv, &sm.slab.g.Bs[buf][k][tx * 4], 64);  // as b_col placed them
 #pragma unroll
-        for (int a = 0; a < kPR; ++a)
+        for (int a = 0; a < PR; ++a)
 #pragma unroll
-          for (int c = 0; c < kPC; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
+          for (int c = 0; c < PC; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
       }
       if (sl + 1 < slabs) stash(buf ^ 1);
       __syncthreads();
@@ -290,42 +375,61 @@ __device__ void gemm(const float* A, int lda, const float* B, int ldb, int M, in
   }
 }
 
-// f(j, sum_i y[i] row(i)[j]) for each column j < cols, as `colsums` with the
-// rows given by pointer (row(i)) and the rows with y[i] == 0 skipped: on
-// finite data they add nothing, and the skip is uniform across the block.
-template <class Row, class F>
-__device__ void colsums_rows(const float* y, Row row, int rows, int cols, F f, int rank,
-                             int size) {
-  const int threads = size * kThreads;
-  for (int j0 = rank * kThreads + threadIdx.x; j0 < cols; j0 += 4 * threads) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    int jj[4];
-    bool ok[4];
+// The unit shape of a product of M x N outputs over `size` blocks, of the
+// shapes in `allowed`: the fewest waves of units over the blocks times a
+// unit's time, the largest shape on a tie.  Every block computes the same
+// from (M, N, size).
+__device__ __forceinline__ int pick_unit(int M, int N, int size, unsigned allowed) {
+  constexpr int pr[kShapes] = {4, 4, 2, 2, 1}, pc[kShapes] = {8, 4, 8, 4, 8};
+  // the time of an output in each shape on one SM, relative (a unit's time
+  // on an H100 at k = 824: 129-138, 78, 95-99, 58 and 91 µs)
+  constexpr int cost_of[kShapes] = {100, 116, 145, 174, 272};
+  int best = -1;
+  long long best_cost = 0;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) { jj[k] = j0 + k * threads; ok[k] = jj[k] < cols; }
-    for (int i = 0; i < rows; ++i) {
-      const float yi = y[i];
-      if (yi == 0.f) continue;
-      const float* r = row(i);
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (ok[k]) acc[k] = fmaf(yi, r[jj[k]], acc[k]);
+  for (int u = 0; u < kShapes; ++u) {
+    if (!(allowed >> u & 1)) continue;
+    const int tm = 32 * pr[u], tn = 16 * pc[u];
+    const long long units = (long long)((M + tm - 1) / tm) * ((N + tn - 1) / tn);
+    const long long cost = (units + size - 1) / size * tm * tn * cost_of[u];
+    if (best < 0 || cost < best_cost) {
+      best = u;
+      best_cost = cost;
     }
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (ok[k]) f(jj[k], acc[k]);
   }
+  return best;
 }
 
-// f(j, sum_i y(i) M[i, j]) for each column j < cols, with the chain of
-// `colsums` (simplex_common.cuh): fmaf over i in order from 0.  A block takes
-// 32-column tiles (rank, rank + size, ...); warps 1.. stage each chunk of
-// kCsRows rows of the tile (kCsPer rows a warp, loaded together) and its
-// weights y(i) in shared memory while warp 0 runs the previous chunk's
-// chains, one column a lane.
-template <class Y, class F>
-__device__ void colsums_staged(Y y, const float* M, int rows, int cols, F f, Smem& sm,
-                               int rank, int size) {
+// `gemm` over the grid in the unit shape that pick_unit gives, of `kAllowed`.
+template <unsigned kAllowed, bool kBT, class Epi>
+__device__ void gemm_grid(const float* A, int lda, const float* B, int ldb, int M, int N,
+                          int K, Epi epi, Smem& sm, int rank, int size) {
+  const int u = pick_unit(M, N, size, kAllowed);
+  if constexpr (kAllowed & 1) if (u == 0) gemm<kBT, 4, 8>(A, lda, B, ldb, M, N, K, epi, sm, rank, size);
+  if constexpr (kAllowed & 2) if (u == 1) gemm<kBT, 4, 4>(A, lda, B, ldb, M, N, K, epi, sm, rank, size);
+  if constexpr (kAllowed & 4) if (u == 2) gemm<kBT, 2, 8>(A, lda, B, ldb, M, N, K, epi, sm, rank, size);
+  if constexpr (kAllowed & 8) if (u == 3) gemm<kBT, 2, 4>(A, lda, B, ldb, M, N, K, epi, sm, rank, size);
+  if constexpr (kAllowed & 16) if (u == 4) gemm<kBT, 1, 8>(A, lda, B, ldb, M, N, K, epi, sm, rank, size);
+}
+
+// Row i of a row-major matrix with leading dimension ld, as a `row` of
+// colsums_staged.
+struct Rows {
+  const float* M;
+  int ld;
+  __device__ const float* operator()(int i) const { return M + (size_t)i * ld; }
+};
+
+// f(j, sum_i y(i) row(i)[j]) for each column j < cols, with the chain of
+// `colsums` (simplex_common.cuh): fmaf over i in order from 0, and with
+// kSkip the rows whose weight y(i) is 0 skipped (on finite data they add
+// nothing).  A block takes 32-column tiles (rank, rank + size, ...); warps
+// 1.. stage each chunk of kCsRows rows of the tile (kCsPer rows a warp,
+// loaded together) and its weights in shared memory while warp 0 runs the
+// previous chunk's chains, one column a lane.
+template <bool kSkip, class Y, class Row, class F>
+__device__ void colsums_staged(Y y, Row row, int rows, int cols, F f, Smem& sm, int rank,
+                               int size) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int chunks = (rows + kCsRows - 1) / kCsRows;
   for (int t = rank; t * 32 < cols; t += size) {
@@ -336,7 +440,7 @@ __device__ void colsums_staged(Y y, const float* M, int rows, int cols, F f, Sme
 #pragma unroll
       for (int u = 0; u < kCsPer; ++u) {
         const int i = c * kCsRows + (warp - 1) + u * (kWarps - 1);
-        v[u] = (i < rows && j < cols) ? M[(size_t)i * cols + j] : 0.f;
+        v[u] = (i < rows && j < cols) ? row(i)[j] : 0.f;
       }
       const int r = threadIdx.x - 32;
       const float yr = (r < kCsRows && c * kCsRows + r < rows) ? y(c * kCsRows + r) : 0.f;
@@ -352,7 +456,10 @@ __device__ void colsums_staged(Y y, const float* M, int rows, int cols, F f, Sme
         const CsChunk& ch = sm.slab.cs[c & 1];
         const int nr = min(kCsRows, rows - c * kCsRows);
 #pragma unroll 8
-        for (int r = 0; r < nr; ++r) acc = fmaf(ch.y[r], ch.M[r][lane], acc);
+        for (int r = 0; r < nr; ++r) {
+          const float yr = ch.y[r];
+          if (!kSkip || yr != 0.f) acc = fmaf(yr, ch.M[r][lane], acc);
+        }
       } else if (c + 1 < chunks) {
         stage(c + 1);
       }
@@ -372,106 +479,153 @@ __device__ __forceinline__ float viol_of(float x, float lb, float ub) {
 
 // x_B (with one refinement step), the reduced costs d and the projected
 // steepest-edge weights from B^-1 and the statuses (recompute_vectors), run by
-// every block of the grid: each step hands out columns, rows or row tiles,
-// with a grid barrier before each step that reads what the last one wrote.
+// every block of the grid: each step hands out units, columns or rows, with
+// a grid barrier before each step that reads what the last one wrote.
 // Not inlined, nor is `refresh`: inlined into the kernel, the grid phases
 // made ptxas spill in the leader's major loop (1552 B of spill stores, a
 // major 13% slower); called, they are allocated on their own.
 __device__ __noinline__ void recompute_vectors(const Lp& L, const Params& p, Smem& sm, Ctl* ctl) {
   const int m = p.m, n = p.n, rank = blockIdx.x, size = gridDim.x;
   const int gtid = rank * kThreads + threadIdx.x, threads = size * kThreads;
+  const int se_tiles = (m + kTN - 1) / kTN;
+  if (p.se_weights) {
+    // gamma_j = 1 + |B^-1 a_j|^2, from the rows of Aᵀ B^-ᵀ: each output row
+    // leaves its sum of squares over each 128-column tile in L.sep (a
+    // thread's chain over its 8 columns, then a tree over the 16 lanes of
+    // the row); the sum over the tiles, in order, comes after a barrier
+    gemm_grid<kSeShapes, true>(
+        L.AT, m, L.Binv, m, n, m, m,
+        [&](int i0, int j0, auto& acc) {
+          constexpr int PR = sizeof(acc) / sizeof(acc[0]), PC = sizeof(acc[0]) / sizeof(float);
+          static_assert(PC * 16 == kTN, "a partial sums a 128-column tile");
+          const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+          for (int a = 0; a < PR; ++a) {
+            float s = 0.f;
+#pragma unroll
+            for (int cc = 0; cc < PC; ++cc)
+              if (j0 + tx * PC + cc < m) s = fmaf(acc[a][cc], acc[a][cc], s);
+            for (int o = 8; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+            const int i = i0 + ty * PR + a;
+            if (tx == 0 && i < n) L.sep[(size_t)i * se_tiles + j0 / kTN] = s;
+          }
+        },
+        sm, rank, size);
+    K2_RSTEP(C_REF_SE);
+  }
   for (int j = gtid; j < n; j += threads) L.xn[j] = nonbasic_x(L.vstat[j], L.lo[j], L.hi[j]);
+  K2_RSTEP(C_REF_BEFF);
   grid_sync(ctl, size);
+  K2_RSTEP(C_REF_SYNC);
   // b_eff = b - A x_N = b - sum_j x_N[j] Aᵀ[j, :]
-  colsums_rows(L.xn, [&](int j) { return L.AT + (size_t)j * m; }, n, m,
-               [&](int k, float acc) { L.beff[k] = L.b[k] - acc; }, rank, size);
+  colsums_staged<true>([&](int j) { return L.xn[j]; }, Rows{L.AT, m}, n, m,
+                       [&](int k, float acc) { L.beff[k] = L.b[k] - acc; }, sm, rank, size);
+  K2_RSTEP(C_REF_BEFF);
   grid_sync(ctl, size);
+  K2_RSTEP(C_REF_SYNC);
   matvec(L.Binv, L.beff, m, m, [&](int i, float acc) { L.xB[i] = acc; }, rank, size);
+  K2_RSTEP(C_REF_MATVEC);
   grid_sync(ctl, size);
+  K2_RSTEP(C_REF_SYNC);
   if (p.xb_refine) {
     // r = b_eff - B x_B (B x_B = sum_i x_B[i] Aᵀ[basis[i], :]); x_B += B^-1 r
-    colsums_rows(L.xB, [&](int i) { return L.AT + (size_t)L.basis[i] * m; }, m, m,
-                 [&](int k, float acc) { L.beff[k] = L.beff[k] - acc; }, rank, size);
+    colsums_staged<true>([&](int i) { return L.xB[i]; },
+                         [&](int i) { return L.AT + (size_t)L.basis[i] * m; }, m, m,
+                         [&](int k, float acc) { L.beff[k] = L.beff[k] - acc; }, sm, rank,
+                         size);
+    K2_RSTEP(C_REF_BEFF);
     grid_sync(ctl, size);
+    K2_RSTEP(C_REF_SYNC);
     matvec(L.Binv, L.beff, m, m, [&](int i, float acc) { L.xB[i] = L.xB[i] + acc; },
            rank, size);
+    K2_RSTEP(C_REF_MATVEC);
     grid_sync(ctl, size);
+    K2_RSTEP(C_REF_SYNC);
   }
-  colsums_staged([&](int i) { return L.cB[i]; }, L.Binv, m, m,
-                 [&](int j, float acc) { L.y[j] = acc; }, sm, rank, size);
+  colsums_staged<false>([&](int i) { return L.cB[i]; }, Rows{L.Binv, m}, m, m,
+                        [&](int j, float acc) { L.y[j] = acc; }, sm, rank, size);
+  K2_RSTEP(C_REF_Y);
   grid_sync(ctl, size);
+  K2_RSTEP(C_REF_SYNC);
   matvec(L.AT, L.y, n, m, [&](int j, float acc) {
     L.d[j] = L.vstat[j] == BASIC ? 0.f : L.c[j] - acc;
   }, rank, size);
+  K2_RSTEP(C_REF_MATVEC);
   if (p.se_weights) {
-    // gamma_j = 1 + |B^-1 a_j|^2: row sums of squares of Aᵀ B^-ᵀ, one
-    // output row tile at a time (its column tiles run in order, and each
-    // half-warp shares the running sums of its four rows); a block takes
-    // whole row tiles, so each sum keeps its order
-    float g[kPR] = {0.f, 0.f, 0.f, 0.f};
-    gemm<true>(L.AT, m, L.Binv, m, n, m, m,
-                      [&](int i0, int j0, Patch& acc) {
-                        const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-                        for (int a = 0; a < kPR; ++a) {
-                          float s = 0.f;
-#pragma unroll
-                          for (int cc = 0; cc < kPC; ++cc)
-                            if (j0 + tx * kPC + cc < m) s = fmaf(acc[a][cc], acc[a][cc], s);
-                          for (int o = 8; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
-                          g[a] = (j0 == 0 ? 0.f : g[a]) + s;
-                          const int i = i0 + ty * kPR + a;
-                          if (j0 + kTN >= m && tx == 0 && i < n) L.wts[i] = 1.f + g[a];
-                        }
-                      },
-                      sm, rank, size, true);
+    for (int i = gtid; i < n; i += threads) {
+      float g = 0.f;
+      for (int t = 0; t < se_tiles; ++t) g = g + L.sep[(size_t)i * se_tiles + t];
+      L.wts[i] = 1.f + g;
+    }
+    K2_RSTEP(C_REF_SE);
   }
   grid_sync(ctl, size);
+  K2_RSTEP(C_REF_SYNC);
 }
 
 // `newton_sweeps` sweeps X <- 2X - (X B) X with B gathered from Aᵀ by basis
 // index (once for all sweeps), run by every block of the grid; each block
-// leaves its share of |I - X B|_inf of the last sweep in ctl->tell.
+// leaves its share of |I - X B|_inf of the last sweep in ctl->tell.  The
+// sweeps write B^-1 and L.Xn in turn, so an odd count ends on a copy.
 __device__ void newton_refresh(const Lp& L, const Params& p, Smem& sm, Ctl* ctl) {
   const int m = p.m, rank = blockIdx.x, size = gridDim.x;
   const size_t mm = (size_t)m * m;
   const size_t gtid = (size_t)rank * kThreads + threadIdx.x, threads = (size_t)size * kThreads;
+  K2_RSTART();
   for (size_t e = gtid; e < mm; e += threads)
     L.BT[e] = L.AT[(size_t)L.basis[e / m] * m + e % m];  // Bᵀ row i = column basis[i]
+  K2_RSTEP(C_REF_GATHER);
   grid_sync(ctl, size);
+  K2_RSTEP(C_REF_SYNC);
   float tmax = 0.f;
+  float *X = L.Binv, *Xn = L.Xn;
   for (int s = 0; s < p.newton_sweeps; ++s) {
     tmax = 0.f;
     // H = X B, with B(k, j) = Bᵀ[j, k]; the telltale reads I - H
-    gemm<true>(L.Binv, m, L.BT, m, m, m, m,
-                      [&](int i0, int j0, Patch& acc) {
-                        const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-                        for (int a = 0; a < kPR; ++a)
-                          for (int cc = 0; cc < kPC; ++cc) {
-                            const int gi = i0 + ty * kPR + a, gj = j0 + tx * kPC + cc;
-                            if (gi >= m || gj >= m) continue;
-                            L.H[(size_t)gi * m + gj] = acc[a][cc];
-                            tmax = max_nan(tmax, fabsf((gi == gj ? 1.f : 0.f) - acc[a][cc]));
-                          }
-                      },
-                      sm, rank, size);
+    gemm_grid<kNewtonShapes, true>(
+        X, m, L.BT, m, m, m, m,
+        [&](int i0, int j0, auto& acc) {
+          constexpr int PR = sizeof(acc) / sizeof(acc[0]), PC = sizeof(acc[0]) / sizeof(float);
+          const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+          for (int a = 0; a < PR; ++a)
+            for (int cc = 0; cc < PC; ++cc) {
+              const int gi = i0 + ty * PR + a, gj = j0 + tx * PC + cc;
+              if (gi >= m || gj >= m) continue;
+              L.H[(size_t)gi * m + gj] = acc[a][cc];
+              tmax = max_nan(tmax, fabsf((gi == gj ? 1.f : 0.f) - acc[a][cc]));
+            }
+        },
+        sm, rank, size);
+    K2_RSTEP(C_REF_NEWTON);
     grid_sync(ctl, size);
+    K2_RSTEP(C_REF_SYNC);
     // X' = 2X - H X
-    gemm<false>(L.H, m, L.Binv, m, m, m, m,
-                       [&](int i0, int j0, Patch& acc) {
-                         const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-                         for (int a = 0; a < kPR; ++a)
-                           for (int cc = 0; cc < kPC; ++cc) {
-                             const int gi = i0 + ty * kPR + a, gj = j0 + tx * kPC + cc;
-                             if (gi >= m || gj >= m) continue;
-                             const size_t e = (size_t)gi * m + gj;
-                             L.Xn[e] = 2.f * L.Binv[e] - acc[a][cc];
-                           }
-                       },
-                       sm, rank, size);
+    gemm_grid<kNewtonShapes, false>(
+        L.H, m, X, m, m, m, m,
+        [&](int i0, int j0, auto& acc) {
+          constexpr int PR = sizeof(acc) / sizeof(acc[0]), PC = sizeof(acc[0]) / sizeof(float);
+          const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+          for (int a = 0; a < PR; ++a)
+            for (int cc = 0; cc < PC; ++cc) {
+              const int gi = i0 + ty * PR + a, gj = j0 + tx * PC + cc;
+              if (gi >= m || gj >= m) continue;
+              const size_t e = (size_t)gi * m + gj;
+              Xn[e] = 2.f * X[e] - acc[a][cc];
+            }
+        },
+        sm, rank, size);
+    K2_RSTEP(C_REF_NEWTON);
     grid_sync(ctl, size);
-    for (size_t e = gtid; e < mm; e += threads) L.Binv[e] = L.Xn[e];
+    K2_RSTEP(C_REF_SYNC);
+    float* t = X;
+    X = Xn;
+    Xn = t;
+  }
+  if (X != L.Binv) {
+    for (size_t e = gtid; e < mm; e += threads) L.Binv[e] = X[e];
+    K2_RSTEP(C_REF_COPY);
     grid_sync(ctl, size);
+    K2_RSTEP(C_REF_SYNC);
   }
   tmax = block_max_nan(tmax, sm);
   if (threadIdx.x == 0) ctl->tell[rank] = tmax;
@@ -522,11 +676,12 @@ __device__ __forceinline__ Priced price(const Lp& L, const Params& p, Smem& sm, 
   float* dcur = p1 ? L.d1 : L.d;
   if (flags & kDense) {
     if (p1)
-      colsums_staged([&](int i) { return sigma_of(L.xB[i], L.loB[i], L.hiB[i], p.feas_tol); },
-                     L.Binv, m, m, [&](int k, float acc) { L.y[k] = acc; }, sm, rank, size);
+      colsums_staged<false>(
+          [&](int i) { return sigma_of(L.xB[i], L.loB[i], L.hiB[i], p.feas_tol); },
+          Rows{L.Binv, m}, m, m, [&](int k, float acc) { L.y[k] = acc; }, sm, rank, size);
     else
-      colsums_staged([&](int i) { return L.cB[i]; }, L.Binv, m, m,
-                     [&](int k, float acc) { L.y[k] = acc; }, sm, rank, size);
+      colsums_staged<false>([&](int i) { return L.cB[i]; }, Rows{L.Binv, m}, m, m,
+                            [&](int k, float acc) { L.y[k] = acc; }, sm, rank, size);
     K2_MARK(0);
     grid_sync(ctl, size);
     K2_MARK(1);
@@ -887,7 +1042,8 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
   L.wts = L.d1 + n;
   L.sc = L.wts + n;
   L.xn = L.sc + n;
-  L.lsc = L.xn + n;
+  L.sep = L.xn + n;
+  L.lsc = L.sep + (size_t)n * ((m + kTN - 1) / kTN);
   L.lid = reinterpret_cast<int*>(L.lsc + (size_t)kMaxGrid * K);
   L.eta_rs = L.lid + (size_t)kMaxGrid * K;
   L.part = L.eta_rs + K;
@@ -937,6 +1093,7 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
   for (int j = tid; j < n; j += kThreads) L.wts[j] = 1.f;
   post(ctl, epoch, kRecompute, gridDim.x);
   recompute_vectors(L, p, sm, ctl);
+  K2_RZERO();  // the start is no part of a refresh
 
   // Loop scalars live in registers, identical in every thread.  fresh = 1
   // <=> (B^-1, x_B, d) were recomputed since the last pivot: terminal claims
@@ -968,7 +1125,7 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
       tell = refresh(L, p, sm, ctl);
       sref = 0;
       fresh = 1;
-      K2_TICK(C_REFRESH);
+      K2_RTAKE();
     }
     const bool diverged = do_refresh && tell > 0.5f;
     if (do_refresh) {
@@ -1288,15 +1445,16 @@ extern "C" {
 
 // Floats of global scratch: three m x m (the gathered Bᵀ and two Newton
 // temporaries), three minor_k x m (W, the eta ledger, the fold's P), nine
-// m-vectors and five n-vectors; the pricing's lists, a score and a column
-// for each of minor_k pairs of each of up to kMaxGrid blocks, and three ints
-// a block; the ledger's minor_k leaving rows; then the grid's control block
-// (its command word, epoch and barrier, and one telltale for each of up to
-// kMaxGrid blocks).
+// m-vectors and five n-vectors; the steepest-edge partial sums, one for
+// each row of Aᵀ and 128-column tile of B^-1; the pricing's lists, a score
+// and a column for each of minor_k pairs of each of up to kMaxGrid blocks,
+// and three ints a block; the ledger's minor_k leaving rows; then the grid's
+// control block (its command word, epoch and barrier, and one telltale for
+// each of up to kMaxGrid blocks).
 size_t streaming_simplex_workspace_floats(int m, int n, int minor_k) {
   return 3 * (size_t)m * m + 3 * (size_t)minor_k * m + 9 * (size_t)m + 5 * (size_t)n +
-         (2 * (size_t)kMaxGrid + 1) * minor_k + 3 * (size_t)kMaxGrid +
-         sizeof(Ctl) / sizeof(float);
+         (size_t)n * ((m + kTN - 1) / kTN) + (2 * (size_t)kMaxGrid + 1) * minor_k +
+         3 * (size_t)kMaxGrid + sizeof(Ctl) / sizeof(float);
 }
 
 // What bounds K2's grid on the current device: its SM count and how many
@@ -1374,7 +1532,7 @@ const char* streaming_simplex_error_string(int err) {
 }
 
 #ifdef K2_CLOCKS
-// Copy the leader's cycle sums (kParts + 1 values: C_REFRESH .. C_OTHER, then
+// Copy the leader's cycle sums (kParts + 1 values: C_REF_GATHER .. C_OTHER, then
 // the majors they cover) into `host` and zero them.  Synchronises.
 int streaming_simplex_clocks(unsigned long long* host) {
   cudaError_t err = cudaDeviceSynchronize();

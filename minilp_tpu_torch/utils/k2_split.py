@@ -21,12 +21,13 @@ The default run's time less its refreshes, over its majors, is the cost of
 one major.  Changing the period changes the pivot path, so the split is an
 estimate.  Unless `--no-clocks`, a second build of the kernel with
 `-DK2_CLOCKS` runs the default launch on the grid again and sums the
-leader's `clock64()` cycles per part of a major (`PARTS`: pricing's y and
-its barrier, d, local lists and barrier, the candidate merge, the tableau block W and its
-barrier, the minors, the fold's gather, sums and barriers, the refresh and
-the rest); it prints their means per major, their share of the launch's
-ms, and that share summed by group (pricing, merge, tableau, minors,
-fold, refresh, other).  `--against DIR`
+leader's `clock64()` cycles per part of a major (`PARTS`: the refresh's
+steps, its barriers and the rest of it, pricing's y and its barrier, d,
+local lists and barrier, the candidate merge, the tableau block W and its
+barrier, the minors, the fold's gather, sums and barriers, and the rest);
+it prints their means per major, their share of the launch's ms, that
+share summed by group (refresh, pricing, merge, tableau, minors, fold,
+other), and the refresh's parts as ms a refresh.  `--against DIR`
 builds the kernel of another checkout at DIR (one with the same C
 interface, such as the parent commit unpacked by `git archive`) and runs
 its default launch on the grid against this tree's, in turns (other,
@@ -47,8 +48,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 SHAPES = {"25fv47": (821, 1571, 0.008), "fit1p": (627, 1677, 0.0095)}
 #: the kernel's clock parts (`Part` in streaming_simplex.cu), in its order;
-#: "x.sync" is the grid barrier that ends step x, as the leader waits on it
-PARTS = ("refresh", "price.y", "price.y.sync", "price.d", "price.top", "price.sync", "merge",
+#: "x.sync" is the grid barrier that ends step x, as the leader waits on it,
+#: and "refresh.sync" every grid barrier of the refresh
+PARTS = ("refresh.gather", "refresh.newton", "refresh.copy", "refresh.beff", "refresh.y",
+         "refresh.matvec", "refresh.se", "refresh.sync", "refresh.other",
+         "price.y", "price.y.sync", "price.d", "price.top", "price.sync", "merge",
          "tableau", "tableau.sync", "minors", "fold.gather", "fold.sync", "fold.sum",
          "fold.sync2", "other")
 
@@ -141,6 +145,9 @@ def split(tag: str, clocks: bool = True, against=None) -> dict:
             key = "pricing" if pt.startswith("price") else pt.split(".")[0]
             groups[key] = groups.get(key, 0.0) + ms
         res["ms_by_group"] = groups
+        res["refresh_ms_by_step"] = {
+            pt.split(".", 1)[1]: ms / max(clocked["refreshes"], 1)
+            for pt, ms in res["ms_by_part"].items() if pt.startswith("refresh.")}
     if other is not None:
         outs = {"this": [], "other": []}
         turns = [run(grid, lib, outs[side]) for side, lib in

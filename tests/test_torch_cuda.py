@@ -280,6 +280,11 @@ K2_WIDE_CASES = {
     # more than one column a thread in every block: each block builds its
     # list by repeated argmax, and the merge joins two such lists
     "many_columns": ((100, 1200, 0.03, 2), {}, dict(blocks=2)),
+    # 304 x 1280: every product of the refresh has several row and column
+    # units; on 3 blocks more units than blocks, on the default grid the
+    # smallest unit shapes
+    "refresh_units": ((300, 900, 0.02, 2), {}, None),
+    "refresh_units_3": ((300, 900, 0.02, 2), {}, dict(blocks=3)),
 }
 
 
@@ -310,9 +315,12 @@ def test_k2_wide_matches_one_block(cuda, case):
         blocks += wide_blocks["extra"]
     elif wide_blocks:
         blocks = wide_blocks["blocks"]
-        # block r's columns pass 512 (a warp a row, 32 rows a pass) when
-        # ((32 blocks + r) 16) < n, for every r < blocks
-        assert n > 16 * (33 * blocks - 1)
+        if case == "many_columns":
+            # block r's columns pass 512 (a warp a row, 32 rows a pass) when
+            # ((32 blocks + r) 16) < n, for every r < blocks
+            assert n > 16 * (33 * blocks - 1)
+    if case.startswith("refresh_units"):
+        assert m > 256 and n > 1024
     before = ss.launches
     wide, one = (ss.stream_kernel_call(*launch.args, launch.warm, blocks=g, **launch.kw)
                  for g in (blocks, 1))

@@ -211,11 +211,12 @@ def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
 def _wide_phase_work_items(m, n):
     """Work items of each of K2's grid phases, one block's worth each: the
     Newton gather and copy (m² entries, one per thread of 512), the Newton
-    products (128×128 output tiles), the steepest-edge product (128-row
-    tiles), the reduced costs (n rows, one per warp of 16) and the column
-    sums (m columns, one per thread)."""
-    return max(-(-m * m // 512), (-(-m // 128)) ** 2, -(-n // 128), -(-n // 16),
-               -(-m // 512))
+    products (output units of 128×128 down to 64×64, the finest 64×64), the
+    steepest-edge product (units of 128×128 down to 32×128, the finest
+    32-row by 128-column), the reduced costs (n rows, one per warp of 16) and
+    the column sums (32-column tiles)."""
+    return max(-(-m * m // 512), (-(-m // 64)) ** 2, -(-n // 32) * -(-m // 128),
+               -(-n // 16), -(-m // 32))
 
 
 @pytest.mark.parametrize("m,n", [(8, 16), (60, 70), (100, 300), (128, 128), (129, 260),
