@@ -2,7 +2,10 @@
 
 Each LP judged is solved again by the plain reference (`reference/ipm.py`,
 f64, on the host's CPU, LAPACK's Cholesky), once however often the window
-answered it.  The numbers compared, each against the cell's limit in
+answered it.  The reference first drops the equality rows that depend on
+the others (a pivoted QR), or answers "infeasible" where one contradicts
+them, so an LP with redundant rows is judged against its true optimum.
+The numbers compared, each against the cell's limit in
 `lpbench/workloads/<cell>.json`:
 
 * `status_mismatch`: answers whose status (optimal / infeasible / failed)

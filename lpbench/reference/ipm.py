@@ -2,12 +2,23 @@
 (Mehrotra's predictor-corrector) over the normal equations, in plain torch,
 dense, batched over LPs of one standard shape.
 
-It solves min c·x s.t. A x = b, 0 <= x <= u (u may be inf).  Each LP
+It solves min c·x s.t. A x = b, 0 <= x <= u (u may be inf).  First each
+LP loses the rows of A that depend on the others, since they would make
+A Θ Aᵀ singular: only equality rows can (an inequality's slack column is
+a unit vector), so a Householder QR of those rows with column pivoting
+(geqp3's rule, in the dtype) finds them, as the pivots whose |R_ii| is at
+most max(n, k) · eps of the largest.  A dependent row whose rhs agrees with
+the combination of the others, within eps^(1/3) of 1 + their magnitudes,
+is dropped; one that does not makes the LP infeasible, and no iteration
+runs.  An LP with no dependent row is solved as it stands.  Each LP
 keeps the iterate with the smallest merit, the largest of its relative
 primal and dual residuals and duality gap; it is done when that merit is
-under `tol` (eps^0.6 of the dtype), or when it can go no further: a
-Cholesky factor fails, a step is lost to rounding, the iterates diverge,
-the merit has not improved for `STALL` iterations, or `max_iter` passes.
+under `tol` (eps^0.6 of the dtype), or when it can go no further: a step
+is lost to rounding, the iterates diverge, the merit has not improved for
+`STALL` iterations, or `max_iter` passes.  Where the Cholesky factor of
+A Θ Aᵀ + eps·diag fails, as it can in a degenerate LP's last iterations,
+that LP solves the normal equations through their eigenvectors, with the
+eigenvalues under eps of the largest dropped.
 An LP it could not finish is put to the elastic phase one, min Σ(t⁺ + t⁻)
 s.t. A x + t⁺ − t⁻ = b: an optimum above eps^(1/3) (relative to b) proves
 it infeasible, else its best iterate is its answer.  Every tolerance follows from the dtype, so that the same code in a
@@ -22,7 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .lp import RowLP, StandardLP, standard_form
+from .lp import EQ, RowLP, StandardLP, standard_form
 
 OPTIMAL, INFEASIBLE = "optimal", "infeasible"
 STALL = 8
@@ -97,16 +108,25 @@ def ipm(A, b, c, u, *, max_iter: int = 100):
         M = torch.bmm(A * theta.unsqueeze(1), At)
         M = M + torch.diag_embed(eps * M.diagonal(dim1=1, dim2=2))
         L, info = torch.linalg.cholesky_ex(M)
-        active &= info == 0
-        if not bool(active.any()):
-            break
+        # an LP whose factor fails (a degenerate LP's last iterations) solves
+        # through M's eigenvectors instead, dropping eigenvalues under eps·max
+        bad = torch.nonzero(active & (info != 0)).squeeze(1)
+        if bad.numel():
+            ev, V = torch.linalg.eigh(M[bad])
+            inv = torch.where(ev > eps * ev.amax(1, keepdim=True), 1.0 / ev, 0.0)
+
+        def solve_normal(r):
+            out = torch.cholesky_solve(r.unsqueeze(2), L).squeeze(2)
+            if bad.numel():
+                out[bad] = mv(V, inv * mv(V.transpose(1, 2), r[bad]))
+            return out
 
         def direction(r_xz, r_wv):
             rt = rd - r_xz / x + torch.where(hasu, (r_wv - v * ru) / w, 0.0)
             rhs = rp + mv(A, theta * rt)
             dy = torch.zeros_like(rhs)
             for _ref in range(3):  # the solve, then two steps of refinement
-                dy = dy + torch.cholesky_solve(rhs.unsqueeze(2), L).squeeze(2)
+                dy = dy + solve_normal(rhs)
                 dx = theta * (mv(At, dy) - rt)
                 rhs = rp - mv(A, dx)
             dw = torch.where(hasu, ru - dx, 0.0)
@@ -180,17 +200,76 @@ def _back(lp: RowLP, s: StandardLP, x: np.ndarray) -> np.ndarray:
     return out
 
 
+def _pivoted_qr(M: np.ndarray):
+    """R and the column order of M (n × k) by Householder QR with column
+    pivoting, LAPACK geqp3's rule: each step takes the column of largest
+    remaining norm.  |R|'s diagonal does not increase."""
+    M = M.copy()
+    n, k = M.shape
+    piv = np.arange(k)
+    for j in range(min(n, k)):
+        p = j + int(np.argmax(np.einsum("ij,ij->j", M[j:, j:], M[j:, j:])))
+        M[:, [j, p]] = M[:, [p, j]]
+        piv[[j, p]] = piv[[p, j]]
+        x = M[j:, j]
+        nx = np.sqrt(x @ x)
+        if nx == 0:  # every remaining column is zero
+            break
+        v = x.copy()
+        v[0] += np.copysign(nx, x[0])
+        v /= np.sqrt(v @ v)
+        M[j:, j:] -= 2 * np.outer(v, v @ M[j:, j:])
+    return np.triu(M[:min(n, k)]), piv
+
+
+def independent_rows(s: StandardLP, eq: np.ndarray, dtype) -> StandardLP | None:
+    """`s` without the rows `eq` marks (its equality rows) that depend on
+    the others, computed in `dtype`; None where the rhs of such a row
+    contradicts them (the LP is infeasible); `s` itself where no row
+    depends on another."""
+    rows = np.flatnonzero(eq)
+    if rows.size == 0:
+        return s
+    eps = _eps(dtype)
+    npdt = torch.empty(0, dtype=dtype).numpy().dtype
+    E = s.A[rows].T
+    E = E[E.any(axis=1)].astype(npdt)  # the columns these rows touch
+    # E's R has E's column norms and pivots, and is small enough that the
+    # pivoting loop costs little
+    R, piv = _pivoted_qr(np.linalg.qr(E, mode="r"))
+    d = np.abs(np.diag(R))
+    r = int(np.sum(d > max(E.shape) * eps * (d[0] if d.size else 0.0)))
+    if r == rows.size:
+        return s
+    # each dependent row is lam's combination of the independent ones
+    lam = np.linalg.solve(R[:r, :r], R[:r, r:]) if r else np.zeros((0, rows.size), npdt)
+    b = s.b[rows].astype(npdt)
+    bi, bd = b[piv[:r]], b[piv[r:]]
+    miss = np.abs(bd - lam.T @ bi)
+    if np.any(miss > eps ** (1.0 / 3.0) * (1.0 + np.abs(bd) + np.abs(lam).T @ np.abs(bi))):
+        return None
+    keep = np.ones(s.A.shape[0], dtype=bool)
+    keep[rows[piv[r:]]] = False
+    return dataclasses.replace(s, A=s.A[keep], b=s.b[keep])
+
+
 def solve(lps, *, dtype=torch.float64, device="cpu", max_iter: int = 100):
     """Reference answers (`RefAnswer`) of the row LPs `lps`, in `dtype` on
-    `device`; LPs of one standard shape are solved as one batch."""
+    `device`; LPs of one standard shape, once their dependent rows are
+    dropped (`independent_rows`), are solved as one batch."""
     if dtype == torch.float32 and torch.device(device).type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    std = [standard_form(lp) for lp in lps]
-    groups: dict[tuple, list[int]] = {}
-    for i, s in enumerate(std):
-        groups.setdefault((s.A.shape, tuple(np.isfinite(s.u))), []).append(i)
     out: list[RefAnswer | None] = [None] * len(lps)
+    std: list[StandardLP | None] = []
+    groups: dict[tuple, list[int]] = {}
+    for i, lp in enumerate(lps):
+        s = independent_rows(standard_form(lp), lp.sense == EQ, dtype)
+        std.append(s)
+        if s is None:
+            out[i] = RefAnswer(INFEASIBLE, None, None)
+        else:
+            groups.setdefault((s.A.shape, tuple(np.isfinite(s.u))), []).append(i)
     for idx in groups.values():
         group = [std[i] for i in idx]
         A, b, c, u = _to([[s.A for s in group], [s.b for s in group],

@@ -1,5 +1,6 @@
 """The plain reference agrees with SciPy's HiGHS, and its float32 control
-does not."""
+does not; its dependent rows are dropped, contradicting ones make the LP
+infeasible, and an LP without them is solved bit for bit as before."""
 
 import numpy as np
 import pytest
@@ -9,6 +10,9 @@ from scipy.optimize import linprog
 from lpbench.reference import ipm
 from lpbench.reference.lp import EQ, GE, LE, RowLP, standard_form, violation
 from lpbench.traffic import cold, scenario
+
+#: Netlib degen2's shape: 444 rows, 534 columns, 9 nonzeros a row
+DEGEN2 = (444, 534, 9 / 534)
 
 
 def highs(lp):
@@ -82,3 +86,132 @@ def test_float32_control_is_far_from_the_f64_reference():
         f64, f32 = ipm.solve([lp])[0], ipm.solve([lp], dtype=torch.float32)[0]
         gaps.append(max(rel(f32.obj, f64.obj), violation(lp, f32.x)))
     assert min(gaps) > 1e-7
+
+
+def dropped(lp, dtype=torch.float64):
+    """Rows the reference drops from `lp`'s standard form; None where it
+    finds the LP infeasible."""
+    s = standard_form(lp)
+    kept = ipm.independent_rows(s, lp.sense == EQ, dtype)
+    return None if kept is None else s.A.shape[0] - kept.A.shape[0]
+
+
+@pytest.mark.parametrize("shape, seed", [((60, 150, 0.05), seed) for seed in range(6)]
+                         + [(DEGEN2, seed) for seed in range(2)])
+def test_degenerate_lps_match_highs(shape, seed):
+    lp = cold.degenerate_arrays(*shape, seed).row_lp()
+    assert dropped(lp) > 0  # copies of equality rows
+    status, fun = highs(lp)
+    ans = ipm.solve([lp])[0]
+    assert ans.status == status == "optimal"
+    assert rel(ans.obj, fun) < 1e-9
+    assert violation(lp, ans.x) < 1e-9
+
+
+@pytest.mark.parametrize("shift", [0.0, 1e-3, 1.0])
+def test_a_duplicated_equality_row_is_dropped_or_contradicts(shift):
+    lp = cold.netlib_arrays(40, 100, 0.05, 1).row_lp()
+    i = int(np.flatnonzero(lp.sense == EQ)[0])
+    dup = lp.with_row(lp.A[i].copy(), EQ, lp.rhs[i] + shift)
+    status, fun = highs(dup)
+    ans = ipm.solve([dup])[0]
+    assert ans.status == status
+    if shift:
+        assert status == "infeasible" and dropped(dup) is None
+    else:
+        assert dropped(dup) == 1
+        assert rel(ans.obj, fun) < 1e-9 and violation(dup, ans.x) < 1e-9
+
+
+def _row_lp(prob):
+    """A `minilp_tpu_torch` Problem's rows as a RowLP."""
+    ops = {"<=": LE, "=": EQ, ">=": GE}
+    A = np.zeros((prob.num_constraints, prob.num_vars))
+    for i, (terms, _op, _rhs) in enumerate(prob._constraints):
+        for j, coeff in terms:
+            A[i, j] += coeff
+    return RowLP(c=np.array(prob._obj), A=A,
+                 sense=np.array([ops[op.value] for _t, op, _r in prob._constraints]),
+                 rhs=np.array([rhs for _t, _op, rhs in prob._constraints]),
+                 lo=np.array(prob._lo), hi=np.array(prob._hi))
+
+
+@pytest.mark.parametrize("seed", range(10))
+def test_near_parallel_rows_are_kept(seed):
+    """`ill_conditioned_problem`'s rows scaled and perturbed by 1e-7 are
+    independent, and the reference keeps them.  Where two of them are both
+    equalities (seeds 0, 5 and 7), the optimum moves by about 1e-3 under a
+    residual of 1e-9 along the pair, inside HiGHS's feasibility tolerance
+    (1e-7), so neither solver fixes the objective to 1e-9: there only the
+    status and the answer's feasibility are compared."""
+    from minilp_tpu_torch.utils.synth import ill_conditioned_problem
+
+    lp = _row_lp(ill_conditioned_problem(60, 150, 0.05, seed=seed, parallel_eps=1e-7))
+    assert dropped(lp) == 0
+    eq = lp.A[lp.sense == EQ] != 0
+    equal_pair = len({r.tobytes() for r in eq}) < len(eq)  # a pair keeps its pattern
+    status, fun = highs(lp)
+    ans = ipm.solve([lp])[0]
+    assert ans.status == status == "optimal"
+    assert violation(lp, ans.x) < 1e-9
+    if not equal_pair:
+        assert rel(ans.obj, fun) < 1e-9
+
+
+def failed_factors(monkeypatch) -> list:
+    """The number of LPs whose Cholesky factor failed, a call each."""
+    failed = []
+    cholesky = torch.linalg.cholesky_ex
+
+    def spy(M):
+        L, info = cholesky(M)
+        failed.append(int((info != 0).sum()))
+        return L, info
+
+    monkeypatch.setattr(torch.linalg, "cholesky_ex", spy)
+    return failed
+
+
+def test_a_failed_factor_is_solved_through_eigenvectors(monkeypatch):
+    """degen2-shaped seed 15 loses its Cholesky factor near the optimum; the
+    IPM goes on and converges (it used to stop there, at a merit of 4.8e-9)."""
+    lp = cold.degenerate_arrays(*DEGEN2, 15).row_lp()
+    s = ipm.independent_rows(standard_form(lp), lp.sense == EQ, torch.float64)
+    failed = failed_factors(monkeypatch)
+    A, b, c, u = (torch.as_tensor(a[None]) for a in (s.A, s.b, s.c, s.u))
+    _x, converged, merit = ipm.ipm(A, b, c, u)
+    assert sum(failed) > 0
+    assert bool(converged[0]) and float(merit[0]) < torch.finfo(torch.float64).eps ** 0.6
+
+
+@pytest.mark.parametrize("shape, seeds", [((60, 150, 0.05), range(4)),
+                                          ((821, 1571, 0.008), range(2))])
+def test_lps_without_dependent_rows_are_solved_as_before(shape, seeds, monkeypatch):
+    """The answers are those of the path without the row step, bit for bit,
+    also beside a degenerate LP in the same call; no Cholesky factor fails,
+    so the eigenvector path does not run."""
+    lps = [cold.netlib_arrays(*shape, seed).row_lp() for seed in seeds]
+    failed = failed_factors(monkeypatch)
+    degenerate = cold.degenerate_arrays(60, 150, 0.05, 0).row_lp()
+    repaired = ipm.solve(lps + [degenerate])[:len(lps)]
+    failed.clear()
+    monkeypatch.setattr(ipm, "independent_rows", lambda s, eq, dtype: s)
+    plain = ipm.solve(lps)
+    assert sum(failed) == 0
+    for a, b in zip(repaired, plain):
+        assert a.status == b.status == "optimal" and a.obj == b.obj
+        np.testing.assert_array_equal(a.x, b.x)
+
+
+@pytest.mark.parametrize("shape, seed", [((60, 150, 0.05), seed) for seed in range(6)]
+                         + [(DEGEN2, seed) for seed in range(2)])
+def test_float32_control_fails_on_degenerate_lps(shape, seed):
+    """The control drops the same rows, and breaks the limits that a cell
+    sets as `25fv47-cold` does: `primal_viol` 1e-9 or `obj_gap` 1e-7."""
+    lp = cold.degenerate_arrays(*shape, seed).row_lp()
+    assert dropped(lp, torch.float32) == dropped(lp)
+    f64, f32 = ipm.solve([lp])[0], ipm.solve([lp], dtype=torch.float32)[0]
+    assert f64.status == "optimal"
+    if f32.status == "optimal":
+        gap = max(rel(f32.obj, f64.obj), rel(float(lp.c @ f32.x), f64.obj))
+        assert gap > 1e-7 or violation(lp, f32.x) > 1e-9

@@ -1,6 +1,6 @@
 """Traffic kind "cold": a closed loop with one client, each request one
-distinct Netlib-shaped LP built through the API from its arrays and solved
-cold with `Problem.solve()`.
+distinct LP of the configuration's shape built through the API from its
+arrays and solved cold with `Problem.solve()`.
 
 The LPs come from a pool of `pool` instances made from `pool_seed`, the
 same for every run; the run's seed orders the pool, and request i takes the
@@ -8,10 +8,12 @@ i-th instance of that order (round the pool).  So every seed gets the same
 work in another order, and within a run no LP repeats until `pool`
 requests have passed.
 
-The generator is `minilp_tpu_torch.utils.synth.netlib_shaped_problem`'s,
-copied draw for draw, so that the same seed gives the same LP, but as
-arrays: the harness makes them before a request's clock starts, and the
-reference solves the same arrays.
+The configuration's `generator` names the rule that makes an LP
+(`GENERATORS`; `"netlib_shaped"` where it names none), and its `shape`
+gives the rule's sizes and, for `"degenerate"`, its fractions.  Each rule
+is one of `minilp_tpu_torch.utils.synth`'s, copied draw for draw, so that
+the same seed gives the same LP, but as arrays: the harness makes them
+before a request's clock starts, and the reference solves the same arrays.
 """
 
 from __future__ import annotations
@@ -29,16 +31,16 @@ from ..reference.lp import EQ, GE, LE, RowLP
 class Instance:
     obj: np.ndarray      # (nv,)
     hi: np.ndarray       # (nv,), every lower bound 0
-    cols: np.ndarray     # (m, k) column of each row's nonzeros
-    vals: np.ndarray     # (m, k)
+    cols: np.ndarray     # (m, k) column of each row's nonzeros, or m arrays of any length
+    vals: np.ndarray     # as `cols`
     sense: np.ndarray    # (m,)
     rhs: np.ndarray      # (m,)
 
     def row_lp(self) -> RowLP:
-        m, nv = self.cols.shape[0], self.obj.shape[0]
+        m, nv = len(self.cols), self.obj.shape[0]
         A = np.zeros((m, nv))
-        np.add.at(A, (np.repeat(np.arange(m), self.cols.shape[1]), self.cols.ravel()),
-                  self.vals.ravel())
+        rows = np.repeat(np.arange(m), [len(c) for c in self.cols])
+        np.add.at(A, (rows, np.concatenate(self.cols)), np.concatenate(self.vals))
         return RowLP(c=self.obj.copy(), A=A, sense=self.sense.copy(), rhs=self.rhs.copy(),
                      lo=np.zeros(nv), hi=self.hi.copy())
 
@@ -69,12 +71,68 @@ def netlib_arrays(m: int, nv: int, density: float, seed, frac_eq: float = 0.15,
     return Instance(obj=obj, hi=u, cols=cols, vals=vals, sense=sense, rhs=rhs)
 
 
+def degenerate_arrays(m: int, nv: int, density: float, seed, frac_eq: float = 0.3,
+                      frac_dup_row: float = 0.15, frac_dup_col: float = 0.1,
+                      frac_zero_obj: float = 0.3) -> Instance:
+    """`degenerate_problem(m, nv, density, seed, ...)` as arrays: the same
+    draws in the same order from `numpy.random.default_rng(seed)`.  Every
+    rhs lies on the planted point, the last `frac_dup_row` of the rows copy
+    earlier rows with their sense and rhs, the last `frac_dup_col` of the
+    columns copy earlier columns with their cost and bound, and a share
+    `frac_zero_obj` of the costs is 0.  A row keeps its nonzeros in column
+    order."""
+    rng = np.random.default_rng(seed)
+    col_scale = np.exp(rng.normal(scale=0.5, size=nv))
+    k = max(2, int(round(density * nv)))
+    A = np.zeros((m, nv))
+    for i in range(m):
+        cols = rng.choice(nv, size=k, replace=False)
+        A[i, cols] = rng.normal(size=k) * col_scale[cols]
+    u = rng.uniform(0.5, 2.5, size=nv)
+    obj = rng.normal(size=nv)
+    obj[rng.random(nv) < frac_zero_obj] = 0.0
+    n_dc = int(frac_dup_col * nv)
+    if n_dc:
+        src = rng.choice(nv - n_dc, size=n_dc, replace=False)
+        dst = np.arange(nv - n_dc, nv)
+        A[:, dst] = A[:, src]
+        obj[dst] = obj[src]
+        u[dst] = u[src]
+    n_dr = int(frac_dup_row * m)
+    if n_dr:
+        src_r = rng.choice(m - n_dr, size=n_dr, replace=False)
+        A[m - n_dr:] = A[src_r]
+    x0 = u * rng.uniform(0.1, 0.9, size=nv)
+    rhs = A @ x0
+    if n_dr:
+        rhs[m - n_dr:] = rhs[src_r]
+    eq = rng.random(m) < frac_eq       # both draws are made, as in np.where
+    ge = rng.random(m) < 0.5
+    sense = np.where(eq, EQ, np.where(ge, GE, LE)).astype(np.int64)
+    if n_dr:
+        sense[m - n_dr:] = sense[src_r]
+    cols = [np.flatnonzero(row) for row in A]
+    return Instance(obj=obj, hi=u, cols=cols, vals=[row[c] for row, c in zip(A, cols)],
+                    sense=sense, rhs=rhs)
+
+
+#: each rule by its name in a configuration's `generator`, with the keys of
+#: its `shape` that it reads beyond rows, cols and density (each optional)
+GENERATORS = {
+    "netlib_shaped": (netlib_arrays, ()),
+    "degenerate": (degenerate_arrays,
+                   ("frac_eq", "frac_dup_row", "frac_dup_col", "frac_zero_obj")),
+}
+
+
 def instance(config: dict, params: dict, order, i: int) -> Instance:
     """Request i's LP, given the run's order of the pool (i < 0: the
     warm-up's, which no request gets)."""
     shape = config["shape"]
     key = [params["pool_seed"], order[i % len(order)], 0] if i >= 0 else [params["pool_seed"], 0, 1]
-    return netlib_arrays(shape["rows"], shape["cols"], shape["density"], key)
+    rule, keys = GENERATORS[config.get("generator", "netlib_shaped")]
+    return rule(shape["rows"], shape["cols"], shape["density"], key,
+                **{k: shape[k] for k in keys if k in shape})
 
 
 class Program:
