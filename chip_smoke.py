@@ -132,7 +132,9 @@ failure (exit code 1; no result line is printed then):
    node's wall, pivots and stages, each chain's means, and the warm
    launches of K1 and K2.  Then (b)'s and (c)'s warm launches are run
    again on the same inputs through the kernel (grid and one block) and
-   its plain version, as in phases 3 and 3b: the first launch, the first
+   its plain version, as in phases 3 and 3b, at the options of the main
+   path's launch (K1's optimality tolerance `driver._k1_opt_tol`, 1e-5 of
+   the LP's largest |c_j| and at least 1e-6): the first launch, the first
    after each growth of the row capacity (the same status, certificate
    and objective), and every launch whose claim the driver polished (the
    same status; each claim's f64 distance from the certificate is logged,
@@ -526,7 +528,7 @@ class Compare:
         self.niter = {}  # the kernel's pivots per LP, per case
 
     def run(self, tag, A, b, c, lo, hi, *, slack0, max_iter, warm=None, reps=1,
-            polished=False):
+            polished=False, opt_tol=KERNEL_KW["opt_tol"]):
         torch, bs = self.torch, self.bs
         dev = torch.device(DEVICE)
         t = lambda x, dt=np.float32: torch.tensor(np.ascontiguousarray(x, dtype=dt), device=dev)
@@ -534,7 +536,7 @@ class Compare:
         warm_t = None
         if warm is not None:
             warm_t = (t(warm[0], np.int32), t(warm[1], np.int32), t(warm[2]))
-        kw = dict(slack0=slack0, max_iter=max_iter, **KERNEL_KW)
+        kw = dict(KERNEL_KW, slack0=slack0, max_iter=max_iter, opt_tol=opt_tol)
         m, n = A.shape[1], A.shape[2]
         wide, ms_k = timed(torch, lambda: bs._launch(*args, warm_t, **kw), reps)
         out_k = wide[0]
@@ -1500,12 +1502,16 @@ def recording_launches(cold=False):
             setattr(driver, name, fn)
 
 
-def compare_launches(tag, seen, max_iter, cmp_k1, cmp_k2, one_block=True):
+def compare_launches(tag, seen, opts, cmp_k1, cmp_k2, one_block=True):
     """Hold a path's recorded kernel launches (`recording_launches`) against
-    their plain versions on the same inputs: the first, the first at each
-    new padded row count (the row capacity grew), and every one whose claim
-    the driver polished (`assert_agree`'s `polished`).  `one_block=False`
-    skips K2's one-block rerun."""
+    their plain versions on the same inputs, at the options `opts` gave the
+    launch on the main path (K1's pivot limit and optimality tolerance,
+    `driver._k1_opt_tol`): the first, the first at each new padded row
+    count (the row capacity grew), and every one whose claim the driver
+    polished (`assert_agree`'s `polished`).  `one_block=False` skips K2's
+    one-block rerun."""
+    from minilp_tpu_torch.engine import driver
+
     shapes = set()
     for i, launch in enumerate(seen):
         can, warm = launch["can"], launch["warm"]
@@ -1518,9 +1524,9 @@ def compare_launches(tag, seen, max_iter, cmp_k1, cmp_k2, one_block=True):
                 + (" (polished)" if launch["polished"] else ""))
         if launch["route"] == "_try_megakernel_solve":
             cmp_k1.run(name, can.A[None], can.b[None], can.c[None], can.lo[None], can.hi[None],
-                       slack0=can.nv, max_iter=max_iter(can.M, can.N),
+                       slack0=can.nv, max_iter=opts.effective_max_iter(can.M, can.N),
                        warm=None if warm is None else tuple(x[None] for x in warm),
-                       polished=launch["polished"])
+                       polished=launch["polished"], opt_tol=driver._k1_opt_tol(can, opts))
         else:
             cmp_k2.run(name, can, warm_state=warm, polished=launch["polished"],
                        one_block=one_block)
@@ -1607,7 +1613,7 @@ def incremental_main_path(torch, rec_path, cmp_k1, cmp_k2, chains=CHAINS):
         if k1 + k2 < len(seen):
             raise AssertionError(f"{tag}: {len(seen)} warm kernel calls recorded, "
                                  f"{k1 + k2} launches counted")
-        compare_launches(tag, seen, prob.options.effective_max_iter, cmp_k1, cmp_k2)
+        compare_launches(tag, seen, prob.options, cmp_k1, cmp_k2)
     log(f"  warm launches on the incremental path: K1 {warm['batched_simplex']}, "
         f"K2 {warm['streaming_simplex']}; the basis kernel's {warm['basis_f64']}; "
         f"{smi_name_power()}")
@@ -1969,8 +1975,8 @@ def examples_main_path(torch, rec_path, cmp_k1, cmp_k2, tsp_sizes=TSP_SIZES,
     for tag, seen in recorded:
         if not seen:
             raise AssertionError(f"{tag}: no kernel launch recorded")
-        compare_launches(f"examples {tag}", seen, SolverOptions().effective_max_iter,
-                         cmp_k1, cmp_k2, one_block=False)
+        compare_launches(f"examples {tag}", seen, SolverOptions(), cmp_k1, cmp_k2,
+                         one_block=False)
     for A, b, c, lo, hi, kw in counts.pop("batch_calls"):
         m, n = A.shape[1:]
         cmp_k1.run(f"examples scenario_batch {A.shape[0]} LPs", A, b, c, lo, hi,

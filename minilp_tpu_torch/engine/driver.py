@@ -66,6 +66,17 @@ _SPARSE_HOST_M = 1024
 #: simplex crossover (the JAX package's literal 2048)
 _CROSSOVER_M = 2048
 
+#: K1's optimality tolerance over the LP's largest |c_j| (`_k1_opt_tol`).
+#: K1 keeps its reduced costs in f32, updated at each pivot and recomputed
+#: from an f32 B⁻¹ every `refactor_period` pivots, so a column whose exact
+#: reduced cost is 0, such as the twin of a basic column, reads a few 1e-6
+#: of the costs' scale.  At an absolute 1e-6 K1 kept swapping such twins:
+#: on an H100, 13 of the 64 degen2-shaped LPs of `degen2-cold` (largest
+#: |c_j| 2.5 to 4.9) ran to `max_iter`, 46056 pivots, from a basis that was
+#: already optimal.  At 1e-5, 3e-5 and 1e-4 each ended OPTIMAL after 2429 to
+#: 3304 pivots.
+_K1_OPT_REL = 1e-5
+
 
 def _np_dtype(opts: SolverOptions):
     return np.float64 if opts.dtype == "float64" else np.float32
@@ -395,7 +406,8 @@ def _maybe_presolve(problem: "api.Problem") -> "api.Problem":
     from ..presolve import presolve_problem
 
     with profiling.span("presolve", host=True):
-        reduced, _stats = presolve_problem(problem)
+        reduced, stats = presolve_problem(problem)
+    profiling.bump_stage("presolve_parallel_rows", stats.parallel_rows)
     return reduced
 
 
@@ -585,9 +597,8 @@ def _try_megakernel_solve(can: CanonicalLP, opts: SolverOptions,
                           warm_state=None) -> SimplexState | None:
     """Solve one canonical LP through K1 (f32 iterate) on the solve's device.
 
-    Returns the exact f64 state when the discovered basis passes f64
-    certification, the polished state when an OPTIMAL claim failed it, or
-    None for any other claim (the caller runs the f64 engine).  A kernel
+    Returns what `_finish_claim` makes of K1's claim: the exact f64 state,
+    the polished state, or None (the caller runs the f64 engine).  A kernel
     fault raises.  `warm_state=(basis, vstat, Binv)` (unbatched host arrays)
     re-solves from a previous basis: the incremental API's warm restart.
     """
@@ -602,12 +613,16 @@ def _try_megakernel_solve(can: CanonicalLP, opts: SolverOptions,
         # (the basis kernel) for a card solve, else on the host
         with profiling.span("upload", dev):
             inputs = upload(dev, *lp, dtype=np.float32)
-        rows = megakernel_rows(
-            *inputs,
-            slack0=can.nv,
-            max_iter=opts.effective_max_iter(can.M, can.N),
-            warm_state=warm_state,
-        ).cpu().numpy()
+        # K1's launch alone, with the copy of its result rows back
+        with profiling.span("megakernel_launch", dev):
+            rows = megakernel_rows(
+                *inputs,
+                slack0=can.nv,
+                max_iter=opts.effective_max_iter(can.M, can.N),
+                opt_tol=_k1_opt_tol(can, opts),
+                warm_state=warm_state,
+            ).cpu().numpy()
+        profiling.bump_stage("megakernel_pivots", int(rows[0, -1]))
         if _certify_on_device(opts):
             m, n = can.M, can.N
             basis, vstat = rows[0, :m], rows[0, m:m + n]
@@ -619,15 +634,41 @@ def _try_megakernel_solve(can: CanonicalLP, opts: SolverOptions,
             basis, vstat = res.basis[0], res.vstat[0]
             status, niter = int(res.status[0]), int(res.niter[0])
             verified = bool(res.verified[0])
-    basis = np.asarray(basis)
-    vstat = np.asarray(vstat).astype(np.int8)
-    if not verified:
-        # near-optimal f32 claim that failed exact certification: finish it
-        # with a few exact f64 pivots on the host
-        if status == int(Status.OPTIMAL):
-            return _host_polish_from_basis(can, basis, vstat, opts, niter0=niter)
-        return None
-    return _state_from_certified_basis(can, basis, vstat, niter, opts)
+    return _finish_claim("megakernel", _K1_POLISHED, can, np.asarray(basis),
+                         np.asarray(vstat).astype(np.int8), status, niter, verified, opts)
+
+
+def _k1_opt_tol(can: CanonicalLP, opts: SolverOptions) -> float:
+    """K1's optimality tolerance on `can`: `_K1_OPT_REL` of its largest
+    |c_j|, at least the kernel's default 1e-6 and the options' `opt_tol`.
+    A recorded deviation: the JAX package runs K1 at 1e-6 here.  It
+    only steers the f32 iterate; the f64 check of the basis decides."""
+    return max(1e-6, opts.opt_tol, _K1_OPT_REL * float(np.abs(can.c).max(initial=0.0)))
+
+
+def _finish_claim(route: str, polished: tuple, can: CanonicalLP, basis, vstat, status: int,
+                  niter: int, verified: bool, opts: SolverOptions) -> SimplexState | None:
+    """A kernel route's claim (K1's or K2's: `route` is "megakernel" or
+    "streaming"): the exact f64 state when the basis passed its f64 check;
+    the host polish from the basis for a claim whose status is in
+    `polished` that failed it, as a basis after many f32 pivots is
+    normally a few exact pivots from optimal and the polish banks the
+    device's work; None for any other claim (the caller runs the host
+    engines).  Counted as `route.<route>.polished` or `.declined`."""
+    if verified:
+        return _state_from_certified_basis(can, basis, vstat, niter, opts)
+    if status in polished:
+        profiling.bump_stage(f"route.{route}.polished")
+        return _host_polish_from_basis(can, basis, vstat, opts, niter0=niter)
+    profiling.bump_stage(f"route.{route}.declined")
+    return None
+
+
+#: the claims each kernel route polishes when they fail the f64 check: K1's
+#: OPTIMAL, as the JAX package's route does; K2's OPTIMAL, NUMERICAL (the
+#: kernel's Newton telltale: the basis outgrew f32) and MAX_ITER
+_K1_POLISHED = (int(Status.OPTIMAL),)
+_K2_POLISHED = (int(Status.OPTIMAL), int(Status.NUMERICAL), int(Status.MAX_ITER))
 
 
 def _streaming_eligible(can: CanonicalLP, opts: SolverOptions) -> bool:
@@ -679,13 +720,9 @@ def _try_streaming_solve(can: CanonicalLP, opts: SolverOptions,
                          warm_state=None) -> SimplexState | None:
     """Solve one canonical LP through K2 (f32 iterate) on the solve's device.
 
-    Same contract as `_try_megakernel_solve`: the exact f64 state when the
-    discovered basis passes f64 certification; the host polish from the
-    basis for an OPTIMAL, NUMERICAL (the kernel's Newton telltale: the
-    basis outgrew f32) or MAX_ITER claim that failed it — the f32 pass
-    still banked its pivots; None for any other claim (the caller runs the
-    host engines).  A kernel fault raises.  `warm_state=(basis, vstat,
-    Binv)` restarts K2 from a previous basis, on `can.A` as it stands.
+    Same contract as `_try_megakernel_solve` (`_finish_claim`).  A kernel
+    fault raises.  `warm_state=(basis, vstat, Binv)` restarts K2 from a
+    previous basis, on `can.A` as it stands.
     """
     from ..ops.kernels.streaming_simplex import solve_streaming
 
@@ -697,17 +734,8 @@ def _try_streaming_solve(can: CanonicalLP, opts: SolverOptions,
     if res.cert is not None:
         # K2's check on the card: kept as `_basis_certificate` keeps its own
         can._basis_cert = (_certificate_key(can, basis, vstat, 1e-7), res.cert)
-    if bool(res.verified):
-        return _state_from_certified_basis(can, basis, vstat, int(res.niter), opts)
-    if int(res.status) in (
-        int(Status.OPTIMAL), int(Status.NUMERICAL), int(Status.MAX_ITER)
-    ):
-        # a basis after many f32 pivots is normally a few exact pivots from
-        # optimal: the polish banks the device's work
-        profiling.bump_stage("route.streaming.polished")
-        return _host_polish_from_basis(can, basis, vstat, opts, niter0=int(res.niter))
-    profiling.bump_stage("route.streaming.declined")
-    return None
+    return _finish_claim("streaming", _K2_POLISHED, can, basis, vstat, int(res.status),
+                         int(res.niter), bool(res.verified), opts)
 
 
 def _solve_engine(can: CanonicalLP, opts: SolverOptions) -> SimplexState:

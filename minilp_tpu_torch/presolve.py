@@ -12,6 +12,7 @@ variable as a column of the reduced LP are applied:
 * singleton rows (one structural coefficient) become variable-bound
   tightenings and are dropped,
 * rows made redundant by the variable bounds (interval arithmetic) are dropped,
+* rows with the same coefficients on the same columns are merged (below),
 * variables appearing in no remaining row are fixed at their individually
   optimal bound (or prove unboundedness).
 
@@ -20,6 +21,17 @@ the same optimal value and the engine's solution vector is directly the user's
 solution — and the whole incremental API (`add_constraint` / `fix_var` /
 `unfix_var` / Gomory cuts) remains valid on the reduced problem: edits only
 add rows or tighten/restore bounds recorded at edit time.
+
+Duplicated rows (one pass, O(nnz), after the loop above): rows whose
+sorted (column, coefficient) pairs are equal, exactly, are merged, as LP
+presolvers do: of two inequalities of one sense the tighter stays; a ≤ and
+a ≥ whose right-hand sides agree within the tolerance become one equality;
+of two equalities one stays if their right-hand sides agree, else the LP is
+infeasible; an equality drops an inequality that its right-hand side
+satisfies, else the LP is infeasible.  Scaled multiples are not merged.
+Two copies of a row make any basis that holds both slacks out singular,
+which an f32 simplex cannot tell from a tiny pivot.  The JAX package keeps
+them: a recorded deviation.
 
 Everything here is plain host Python/NumPy on the un-padded problem — it runs
 once per cold solve, never inside the compiled graph.
@@ -45,6 +57,7 @@ class PresolveStats:
     redundant_rows: int = 0
     bounds_tightened: int = 0
     free_cols_fixed: int = 0
+    parallel_rows: int = 0
 
     @property
     def rows_dropped(self) -> int:
@@ -82,6 +95,54 @@ def _row_activity(terms: Terms, lo: List[float], hi: List[float]) -> Tuple[float
             amin += a * hi[j] if hi[j] != math.inf else -math.inf
             amax += a * lo[j] if lo[j] != -math.inf else math.inf
     return amin, amax
+
+
+def _merge_parallel_rows(rows: list, feas_tol: float, stats: PresolveStats) -> None:
+    """Merge the rows of `rows` (None: dropped) that have the same
+    coefficients on the same columns, in place (module docstring).  The key
+    is a row's (column, coefficient) pairs as the API keeps them, sorted by
+    column.  A set of equal rows keeps one equality, or at most one ≤ and
+    one ≥, in the slots of its first rows; an LP without such rows is left
+    as it was."""
+    first: dict = {}
+    sets: dict = {}
+    for i, row in enumerate(rows):
+        if row is not None:
+            k = first.setdefault(tuple(row[0]), i)
+            if k != i:
+                sets.setdefault(k, [k]).append(i)
+    for members in sets.values():
+        _merge_set(rows, members, feas_tol)
+        stats.parallel_rows += sum(rows[i] is None for i in members)
+
+
+def _merge_set(rows: list, members: List[int], feas_tol: float) -> None:
+    """`_merge_parallel_rows` on one set of equal rows (slots in order)."""
+    agree = lambda r, v: abs(r - v) <= feas_tol * (1.0 + max(abs(r), abs(v)))
+    terms = rows[members[0]][0]
+    by = {op: [i for i in members if rows[i][1] == op] for op in ComparisonOp}
+    le = [rows[i][2] for i in by[ComparisonOp.Le]]
+    ge = [rows[i][2] for i in by[ComparisonOp.Ge]]
+    eq = [rows[i][2] for i in by[ComparisonOp.Eq]]
+    u, l = min(le, default=math.inf), max(ge, default=-math.inf)
+    if eq:  # the first equality stays, if the others and the inequalities hold
+        v = eq[0]
+        if not all(agree(r, v) for r in eq) or not (l <= v or agree(l, v)) \
+                or not (v <= u or agree(u, v)):
+            raise Infeasible()
+        keep = {members[0]: (terms, ComparisonOp.Eq, v)}
+    elif le and ge and (l >= u or agree(u, l)):  # l <= a.x <= u, l ≈ u or empty
+        if not agree(u, l):
+            raise Infeasible()
+        keep = {members[0]: (terms, ComparisonOp.Eq, 0.5 * (u + l))}
+    else:  # the tighter rhs of each sense, in the slot of its first row
+        keep = {}
+        if le:
+            keep[by[ComparisonOp.Le][0]] = (terms, ComparisonOp.Le, u)
+        if ge:
+            keep[by[ComparisonOp.Ge][0]] = (terms, ComparisonOp.Ge, l)
+    for i in members:
+        rows[i] = keep.get(i)
 
 
 def presolve_problem(
@@ -156,6 +217,8 @@ def presolve_problem(
                 or (op in (ComparisonOp.Ge, ComparisonOp.Eq) and amax < rhs - tol)
             ):
                 raise Infeasible()
+
+    _merge_parallel_rows(rows, feas_tol, stats)
 
     # -- columns with no remaining row: fix at the individually optimal bound ----
     used = [False] * nv

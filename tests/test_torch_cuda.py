@@ -26,7 +26,9 @@ from minilp_tpu_torch.ops.kernels import packed_simplex as ps
 from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
 from minilp_tpu_torch.parallel import batched, scheduling
 from minilp_tpu_torch.presolve import presolve_problem
-from minilp_tpu_torch.utils.synth import (netlib_shaped_problem, network_flow_problem,
+from minilp_tpu_torch.utils import profiling
+from minilp_tpu_torch.utils.synth import (degenerate_problem, netlib_shaped_problem,
+                                          network_flow_problem,
                                           random_batch)
 
 pytestmark = pytest.mark.cuda
@@ -43,13 +45,14 @@ def cuda():
     return torch.device("cuda")
 
 
-def _kernel_and_plain(cuda, A, b, c, lo, hi, slack0, warm=None):
+def _kernel_and_plain(cuda, A, b, c, lo, hi, slack0, warm=None, **options):
     t = lambda x, dt=np.float32: torch.tensor(np.asarray(x, dtype=dt), device=cuda)
     args = [t(x) for x in (A, b, c, lo, hi)]
     if warm is not None:
         warm = (t(warm[0], np.int32), t(warm[1], np.int32), t(warm[2]))
     before = bs.launches
-    outs = [fn(*args, warm, slack0=slack0, max_iter=4000, **KW)
+    kw = {**KW, "max_iter": 4000, **options}
+    outs = [fn(*args, warm, slack0=slack0, **kw)
             for fn in (bs.simplex_kernel_call, bs.simplex_plain)]
     torch.cuda.synchronize()
     assert bs.launches == before + 1  # the plain version is no launch
@@ -133,6 +136,31 @@ def test_main_path_goes_through_the_kernel(cuda, tmp_path, monkeypatch):
     assert sol._engine.certified
     want = cpu.solve().objective()
     assert abs(sol.objective() - want) <= 1e-9 * (1.0 + abs(want))
+
+
+def test_degen2_pool_lp_goes_through_k1(cuda):
+    """LP 0 of `degen2-cold`'s pool (`lpbench/workloads/degen2-cold.json`:
+    pool seed 20261021) at Netlib degen2's 444 × 534: presolve merges its
+    66 duplicated rows, K1 solves it at the main path's options as its
+    plain version does (status, `verified`, certified objective), and the
+    main path answers from K1's basis without the f64 engine."""
+    key = [20261021, 0, 0]
+    red, stats = presolve_problem(degenerate_problem(444, 534, 9 / 534, seed=key))
+    assert stats.parallel_rows == 66
+    can = canonicalize(red)
+    opts = SolverOptions()
+    out = _kernel_and_plain(cuda, *(x[None] for x in (can.A, can.b, can.c, can.lo, can.hi)),
+                            slack0=can.nv, max_iter=opts.effective_max_iter(can.M, can.N),
+                            opt_tol=driver._k1_opt_tol(can, opts))
+    m, n = can.M, can.N
+    obj = bs._verify_f64(*(x[None] for x in (can.A, can.b, can.c, can.lo, can.hi)),
+                         out[:, :m], out[:, m:m + n], out[:, m + n])[0][0]
+    profiling.reset_stages()
+    sol = degenerate_problem(444, 534, 9 / 534, seed=key).solve()
+    stages = profiling.stages(None)
+    assert stages["route.megakernel"] == 1 and "route.engine" not in stages
+    assert stages["megakernel_pivots"] > 0
+    assert abs(sol.objective() - obj) <= 1e-9 * (1.0 + abs(obj))
 
 
 def test_readme_example_on_the_card(cuda):
