@@ -109,7 +109,10 @@ enum Part {
   C_REF_GATHER, C_REF_NEWTON, C_REF_COPY, C_REF_BEFF, C_REF_Y, C_REF_MATVEC, C_REF_SE,
   C_REF_SYNC, C_REF_OTHER,
   C_PRICE_Y, C_PRICE_YSYNC, C_PRICE_D, C_PRICE_TOP, C_PRICE_SYNC, C_MERGE, C_TABLEAU, C_TABLEAU_SYNC,
-  C_MINORS,
+  // the minors: phase 1's candidate costs, the lane scan, the ratio test
+  // and its reductions, the leaving row (with the long step), the pivot's
+  // or flip's update and its accounting
+  C_MIN_COSTS, C_MIN_SCAN, C_MIN_RATIO, C_MIN_ROW, C_MIN_UPDATE,
   C_FOLD_GATHER, C_FOLD_SYNC, C_FOLD_SUM, C_FOLD_SYNC2,
   C_OTHER, kParts
 };
@@ -247,7 +250,7 @@ struct Lp {
   float* Binv;                        // output: the maintained inverse
   float *BT, *H, *Xn;                 // m x m refresh scratch
   float *W, *etas, *P;                // minor_k x m
-  float *xB, *loB, *hiB, *cB, *beff, *y, *ratio, *tgt, *grow;  // m
+  float *xB, *loB, *hiB, *cB, *beff, *y, *ratio, *tgt;  // m
   float *d, *d1, *wts, *sc, *xn;      // n
   float* sep;                         // n x ceil(m / 128): steepest-edge partial sums
   float* lsc;                         // kMaxGrid x minor_k: each block's top scores
@@ -915,9 +918,10 @@ struct Events {
   bool ok1, ok2;
 };
 
-__device__ __forceinline__ Events row_events(const Lp& L, const Params& p, float s,
+__device__ __forceinline__ Events row_events(const float* xB, const float* loB,
+                                             const float* hiB, const Params& p, float s,
                                              const float* w, int i) {
-  const float x = L.xB[i], lb = L.loB[i], ub = L.hiB[i];
+  const float x = xB[i], lb = loB[i], ub = hiB[i];
   const float delta = -s * w[i];
   const bool up = delta > p.pivot_tol, dn = delta < -p.pivot_tol;
   const bool below = x < lb - p.feas_tol, above = x > ub + p.feas_tol;
@@ -934,14 +938,17 @@ __device__ __forceinline__ Events row_events(const Lp& L, const Params& p, float
   return e;
 }
 
-__device__ LongStep long_step(const Lp& L, const Params& p, float s, const float* w,
-                              Smem& sm) {
+// Not inlined: it runs only at m >= long_step_min_m, and inlined into the
+// minor loop it made ptxas spill there.
+__device__ __noinline__ LongStep long_step(const float* xB, const float* loB,
+                                           const float* hiB, const Params& p, float s,
+                                           const float* w, Smem& sm) {
   const int m = p.m, tid = threadIdx.x;
   float sl = 0.f, mx1 = -INFINITY, mx2 = -INFINITY, mn1 = INFINITY, mn2 = INFINITY;
   for (int i = tid; i < m; i += kThreads) {
-    const float x = L.xB[i];
-    sl += sigma_of(x, L.loB[i], L.hiB[i], p.feas_tol) * (-s * w[i]);
-    const Events e = row_events(L, p, s, w, i);
+    const float x = xB[i];
+    sl += sigma_of(x, loB[i], hiB[i], p.feas_tol) * (-s * w[i]);
+    const Events e = row_events(xB, loB, hiB, p, s, w, i);
     mx1 = max_nan(mx1, e.ok1 ? e.t1 : -INFINITY);
     mx2 = max_nan(mx2, e.ok2 ? e.t2 : -INFINITY);
     mn1 = min_nan(mn1, e.t1);
@@ -954,7 +961,7 @@ __device__ LongStep long_step(const Lp& L, const Params& p, float s, const float
   auto g_at = [&](float tt) {
     float s1 = 0.f, s2 = 0.f;
     for (int i = tid; i < m; i += kThreads) {
-      const Events e = row_events(L, p, s, w, i);
+      const Events e = row_events(xB, loB, hiB, p, s, w, i);
       s1 += e.t1 <= tt ? e.w1 : 0.f;
       s2 += e.t2 <= tt ? e.w2 : 0.f;
     }
@@ -971,7 +978,7 @@ __device__ LongStep long_step(const Lp& L, const Params& p, float s, const float
     float v1 = -INFINITY, v2 = -INFINITY;
     int r1 = kIntMax, r2 = kIntMax;
     for (int i = tid; i < m; i += kThreads) {
-      const Events e = row_events(L, p, s, w, i);
+      const Events e = row_events(xB, loB, hiB, p, s, w, i);
       const float ad = fabsf(-s * w[i]);
       const float s1 = (e.t1 > tl && e.t1 <= th) ? ad : -INFINITY;
       const float s2 = (e.t2 > tl && e.t2 <= th) ? ad : -INFINITY;
@@ -982,7 +989,7 @@ __device__ LongStep long_step(const Lp& L, const Params& p, float s, const float
     block_argmax_pair(v2, r2, sm);
     const bool use2 = v2 > v1;
     ls.r = use2 ? r2 : r1;
-    const Events e = row_events(L, p, s, w, ls.r);
+    const Events e = row_events(xB, loB, hiB, p, s, w, ls.r);
     ls.t = use2 ? e.t2 : e.t1;
     ls.tgt = use2 ? e.g2 : e.g1;
   };
@@ -1036,8 +1043,7 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
   L.y = L.beff + m;
   L.ratio = L.y + m;
   L.tgt = L.ratio + m;
-  L.grow = L.tgt + m;
-  L.d = L.grow + m;
+  L.d = L.tgt + m;
   L.d1 = L.d + n;
   L.wts = L.d1 + n;
   L.sc = L.wts + n;
@@ -1182,11 +1188,16 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
         }
         __syncthreads();
       }
-      // ---- lane scan (one thread; at most kMaxK lanes)
-      if (tid == 0) {
-        int fnd = 0, kd = kIntMax, kb = 0, keyb = kIntMax;
+      K2_TICK(C_MIN_COSTS);
+      // ---- lane scan on warp 0, thread l taking lanes l, l + 32, ...: the
+      // best score under `better`, the top score, the lowest eligible column
+      // (first lane on ties) and whether any is eligible; `better` is a
+      // strict total order and the rest are min, max and or, so the warp's
+      // tree gives what a scan in lane order gives
+      if (tid < 32) {
+        int fnd = 0, kd = kIntMax, kb = kIntMax, keyb = kIntMax;
         float bsc = -INFINITY, smx = -INFINITY;
-        for (int k = 0; k < K; ++k) {
+        for (int k = tid; k < K; k += 32) {
           const int vc = sm.vstat_cand[k], cid = sm.cand_ids[k];
           const float dc = vc == BASIC ? 0.f : sm.d_cand[k];
           const bool can_up = vc == AT_LOWER || vc == FREE;
@@ -1201,12 +1212,24 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
           if (key < keyb) { keyb = key; kb = k; }
           fnd |= elig;
         }
-        sm.lane_i[0] = fnd;
-        sm.lane_i[1] = kd;
-        sm.lane_i[2] = kb;
-        sm.lane_f[0] = smx;
+        for (int o = 16; o > 0; o >>= 1) {
+          const float os = __shfl_xor_sync(kFull, bsc, o);
+          const int od = __shfl_xor_sync(kFull, kd, o);
+          if (better(os, od, bsc, kd)) { bsc = os; kd = od; }
+          smx = max_nan(smx, __shfl_xor_sync(kFull, smx, o));
+          const int okey = __shfl_xor_sync(kFull, keyb, o), okb = __shfl_xor_sync(kFull, kb, o);
+          if (okey < keyb || (okey == keyb && okb < kb)) { keyb = okey; kb = okb; }
+          fnd |= __shfl_xor_sync(kFull, fnd, o);
+        }
+        if (tid == 0) {
+          sm.lane_i[0] = fnd;
+          sm.lane_i[1] = kd;
+          sm.lane_i[2] = kb;
+          sm.lane_f[0] = smx;
+        }
       }
       __syncthreads();
+      K2_TICK(C_MIN_SCAN);
       // suboptimization exit: the best remaining candidate decayed well below
       // the major's top score
       const bool decayed = sm.lane_f[0] < best0 * p.minor_decay;
@@ -1242,6 +1265,7 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
       const bool feas_m = block_sum_int(nreg, sm) == 0;
       const float xb_scale = block_max_nan(xbs, sm);
       const float wabs = block_max_nan(wmx, sm);
+      K2_TICK(C_MIN_RATIO);
       const float tie_cut = t_rows * 1.0001f + 1e-6f;
       int r;
       if (bland) {  // lowest basic column index among the ties
@@ -1267,7 +1291,7 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
       bool ls_on = false;
       float ls_t = 0.f, ls_tgt = 0.f;
       if (p.long_step && p1 && !bland && found) {
-        const LongStep ls = long_step(L, p, s, w, sm);
+        const LongStep ls = long_step(L.xB, L.loB, L.hiB, p, s, w, sm);
         if (ls.active) t_rows = ls.cross ? ls.t : INFINITY;
         if (ls.active && ls.cross) {
           ls_on = true;
@@ -1284,6 +1308,7 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
       const bool do_pivot = found && !flip && !unbounded;
       const bool do_flip = found && flip && !unbounded;
       const float move = t * wabs;
+      K2_TICK(C_MIN_ROW);
 
       if (do_pivot) {
         const int lv = L.basis[r];
@@ -1299,24 +1324,27 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
         const float w_lv = max_nan(gq / (wr_safe * wr_safe), 1.f);
         const bool reset = gq > p.devex_reset;
         const float c_q = L.c[q];
-        __syncthreads();  // every thread holds the pre-step scalars
-        // snapshots before any state changes: column r of W and of the
-        // ledger, and the eta vector g = (w - e_r) / w_r
+        // snapshots before any state changes: column r of W and of the ledger
         for (int k = tid; k < ncand; k += kThreads) sm.alpha[k] = L.W[(size_t)k * m + r];
         for (int k = tid; k < n_eta; k += kThreads) sm.etacol[k] = L.etas[(size_t)k * m + r];
+        __syncthreads();  // every thread holds the pre-step scalars and the snapshots
+        // each thread its rows i: the eta vector's g_i = (w_i - [i = r]) / w_r,
+        // x_B, and the eta transform of W and of the ledger, which records g
+        // as its new eta with its leaving row
         for (int i = tid; i < m; i += kThreads) {
           const float wi = w[i];
-          L.grow[i] = (wi - (i == r ? 1.f : 0.f)) / wr_safe;
+          const float g = (wi - (i == r ? 1.f : 0.f)) / wr_safe;
           L.xB[i] = i == r ? x_enter : L.xB[i] + t * (-s * wi);
+          for (int k = 0; k < ncand; ++k) {
+            float* wk = L.W + (size_t)k * m + i;
+            *wk = *wk - sm.alpha[k] * g;
+          }
+          for (int k = 0; k < n_eta; ++k) {
+            float* ek = L.etas + (size_t)k * m + i;
+            *ek = *ek - sm.etacol[k] * g;
+          }
+          L.etas[(size_t)n_eta * m + i] = g;
         }
-        __syncthreads();
-        // W takes the eta transform; the ledger composes it into its etas
-        // and records it with its leaving row
-        for (size_t e = tid; e < (size_t)ncand * m; e += kThreads)
-          L.W[e] = L.W[e] - sm.alpha[e / m] * L.grow[e % m];
-        for (size_t e = tid; e < (size_t)n_eta * m; e += kThreads)
-          L.etas[e] = L.etas[e] - sm.etacol[e / m] * L.grow[e % m];
-        for (int i = tid; i < m; i += kThreads) L.etas[(size_t)n_eta * m + i] = L.grow[i];
         // exact candidate reduced costs and Devex weights on the lanes
         for (int k = tid; k < ncand; k += kThreads) {
           const int cid = sm.cand_ids[k];
@@ -1336,7 +1364,8 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
         // weight vector (a reset clears all of it)
         if (reset)
           for (int j = tid; j < n; j += kThreads) L.wts[j] = 1.f;
-        __syncthreads();
+        // the pivot's scalar writes: no other thread touches these words
+        // between the barriers (the pre-step reads came before the first)
         if (tid == 0) {
           if (!reset) {
             L.wts[lv] = w_lv;
@@ -1381,10 +1410,10 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
       }
       if (do_pivot) ++n_eta;
       if (!found || unbounded || sref >= p.refactor_period || bland) stop = true;
+      K2_TICK(C_MIN_UPDATE);
     }
 
     // ---- fold the ledger into B^-1 over the grid
-    K2_TICK(C_MINORS);
     if (n_eta > 0) {
       post(ctl, epoch, kFold | (unsigned)n_eta << kCmdBits, gridDim.x);
       fold(L, p, sm, ctl, n_eta);
@@ -1444,7 +1473,7 @@ stream_kernel(const float* __restrict__ AT, const float* __restrict__ b,
 extern "C" {
 
 // Floats of global scratch: three m x m (the gathered Bᵀ and two Newton
-// temporaries), three minor_k x m (W, the eta ledger, the fold's P), nine
+// temporaries), three minor_k x m (W, the eta ledger, the fold's P), eight
 // m-vectors and five n-vectors; the steepest-edge partial sums, one for
 // each row of Aᵀ and 128-column tile of B^-1; the pricing's lists, a score
 // and a column for each of minor_k pairs of each of up to kMaxGrid blocks,
@@ -1452,7 +1481,7 @@ extern "C" {
 // control block (its command word, epoch and barrier, and one telltale for
 // each of up to kMaxGrid blocks).
 size_t streaming_simplex_workspace_floats(int m, int n, int minor_k) {
-  return 3 * (size_t)m * m + 3 * (size_t)minor_k * m + 9 * (size_t)m + 5 * (size_t)n +
+  return 3 * (size_t)m * m + 3 * (size_t)minor_k * m + 8 * (size_t)m + 5 * (size_t)n +
          (size_t)n * ((m + kTN - 1) / kTN) + (2 * (size_t)kMaxGrid + 1) * minor_k +
          3 * (size_t)kMaxGrid + sizeof(Ctl) / sizeof(float);
 }

@@ -24,16 +24,18 @@ estimate.  Unless `--no-clocks`, a second build of the kernel with
 leader's `clock64()` cycles per part of a major (`PARTS`: the refresh's
 steps, its barriers and the rest of it, pricing's y and its barrier, d,
 local lists and barrier, the candidate merge, the tableau block W and its
-barrier, the minors, the fold's gather, sums and barriers, and the rest);
-it prints their means per major, their share of the launch's ms, that
-share summed by group (refresh, pricing, merge, tableau, minors, fold,
-other), and the refresh's parts as ms a refresh.  `--against DIR`
-builds the kernel of another checkout at DIR (one with the same C
-interface, such as the parent commit unpacked by `git archive`) and runs
-its default launch on the grid against this tree's, in turns (other,
-this, this, other), reporting the times and whether every output
-(basis, vstat, the bits of B⁻¹, the monitor) is bit for bit the same.  Prints one JSON
-line per shape (with the grid's blocks and the card's SM count) and the
+barrier, the minors' parts: phase 1's candidate costs, the lane scan, the
+ratio test and its reductions, the leaving row, and the pivot's update and
+its accounting; the fold's gather, sums and barriers, and the rest); it
+prints their means per major, their share of the launch's ms, that share
+summed by group (refresh, pricing, merge, tableau, minors, fold, other),
+and the refresh's parts as ms a refresh.
+`--against DIR` builds the kernel of another checkout at DIR (one with the
+same C interface, such as the parent commit unpacked by `git archive`) and
+runs its default launch on the grid against this tree's, in turns (other,
+this, this, other), reporting the times and whether every output (basis,
+vstat, the bits of B⁻¹, the monitor) is bit for bit the same.  Prints one
+JSON line per shape (with the grid's blocks and the card's SM count) and the
 card's name and power limit as `nvidia-smi` gives them.
 """
 
@@ -53,7 +55,8 @@ SHAPES = {"25fv47": (821, 1571, 0.008), "fit1p": (627, 1677, 0.0095)}
 PARTS = ("refresh.gather", "refresh.newton", "refresh.copy", "refresh.beff", "refresh.y",
          "refresh.matvec", "refresh.se", "refresh.sync", "refresh.other",
          "price.y", "price.y.sync", "price.d", "price.top", "price.sync", "merge",
-         "tableau", "tableau.sync", "minors", "fold.gather", "fold.sync", "fold.sum",
+         "tableau", "tableau.sync", "minors.costs", "minors.scan", "minors.ratio",
+         "minors.row", "minors.update", "fold.gather", "fold.sync", "fold.sum",
          "fold.sync2", "other")
 
 

@@ -191,8 +191,8 @@ def test_f64_engine_on_the_card(cuda):
 def _k2_kernel_and_plain(cuda, A, b, c, lo, hi, slack0, **options):
     """K2 and its plain version on `solve_streaming`'s first launch, with a
     short refresh period so that small LPs refresh too."""
-    launch = ss.prepare_launch(A, b, c, lo, hi, device=cuda, slack0=slack0, tile_n=16,
-                               refactor_period=16, max_iter=4000, **options)
+    options = {**dict(tile_n=16, refactor_period=16, max_iter=4000), **options}
+    launch = ss.prepare_launch(A, b, c, lo, hi, device=cuda, slack0=slack0, **options)
     before = ss.launches
     outs = [fn(*launch.args, launch.warm, **launch.kw)
             for fn in (ss.stream_kernel_call, ss.stream_plain)]
@@ -213,11 +213,24 @@ def _k2_kernel_and_plain(cuda, A, b, c, lo, hi, slack0, **options):
     return outs[0]
 
 
-@pytest.mark.parametrize("long_step", [False, True])
-def test_k2_kernel_matches_plain(cuda, long_step):
-    can = canonicalize(presolve_problem(netlib_shaped_problem(70, 150, 0.08, seed=2))[0])
-    _k2_kernel_and_plain(cuda, can.A, can.b, can.c, can.lo, can.hi, slack0=can.nv,
-                         long_step_min_m=0 if long_step else 2048)
+#: test_k2_kernel_matches_plain's cases: netlib_shaped_problem's shape and
+#: `prepare_launch` options
+K2_PLAIN_CASES = {
+    False: ((70, 150, 0.08), dict(long_step_min_m=2048)),
+    True: ((70, 150, 0.08), dict(long_step_min_m=0)),
+    # 1336 rows, about 7600 pivots in one launch
+    "m1336": ((1340, 1440, 0.004), dict(long_step_min_m=2048, max_iter=20000, chunk_iters=None)),
+    # minor_k = 128: the lane scan's warp takes four lanes a thread
+    "minor_k128": ((400, 900, 0.01), dict(long_step_min_m=2048, minor_k=128)),
+}
+
+
+@pytest.mark.parametrize("case", list(K2_PLAIN_CASES))
+def test_k2_kernel_matches_plain(cuda, case):
+    """K2 against its plain version, at small and large m and minor_k."""
+    shape, options = K2_PLAIN_CASES[case]
+    can = canonicalize(presolve_problem(netlib_shaped_problem(*shape, seed=2))[0])
+    _k2_kernel_and_plain(cuda, can.A, can.b, can.c, can.lo, can.hi, slack0=can.nv, **options)
 
 
 def test_k2_kernel_matches_plain_warm_start(cuda):

@@ -16,6 +16,8 @@ every reference result is computed once per module.
 
 import functools
 import json
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -232,6 +234,24 @@ def test_k2_grid_blocks_stay_within_the_card_and_the_work(m, n):
     assert ss.k2_grid_blocks(8, 16, 132, 1) == 1
     with pytest.raises(ValueError):
         ss.k2_grid_blocks(m, n, 132, 0)
+
+
+def test_k2_split_parts_are_the_kernels_clock_parts():
+    """`k2_split.PARTS` names the clock build's `Part` enum one for one, in
+    its order: the split reads the clock words by position."""
+    from minilp_tpu_torch.utils import k2_split
+
+    src = (Path(build.__file__).resolve().parents[2] / "csrc" / "streaming_simplex.cu").read_text()
+    enum = re.search(r"enum Part \{(.*?)\};", src, re.S).group(1)
+    enum = re.sub(r"//[^\n]*", "", enum)
+    names = [w.strip() for w in enum.split(",") if w.strip()]
+    assert names[-1] == "kParts"
+    prefix = {"REF": "refresh", "PRICE": "price", "MIN": "minors"}
+    as_part = lambda w: ".".join(prefix.get(x, x) for x in w[2:].split("_")).lower()
+    parts = [as_part(w).replace("ysync", "y.sync") for w in names[:-1]]
+    assert tuple(parts) == k2_split.PARTS
+    assert [p for p in parts if p.startswith("minors.")] == [
+        "minors.costs", "minors.scan", "minors.ratio", "minors.row", "minors.update"]
 
 
 def _launch_args(seed=0, m=8, nv=16):
