@@ -398,16 +398,15 @@ def certify_bound(B, m, n):
 def host_checks_counted():
     """Count the host factorizations of a final basis that the port's code
     makes while the block runs: its calls of the host's `_verify_f64` (the
-    single-LP routes' check on a CPU solve), `hostlp.factorize_basis`,
-    `np.linalg.inv` and `np.linalg.solve` (the driver's host check, state
-    rebuild and B⁻¹; calls from outside the package, such as HiGHS's, are
-    not counted).  Yields a list of the names called."""
+    reference check), `hostlp.factorize_basis`, `np.linalg.inv` and
+    `np.linalg.solve` (the host side of `engine/certificate.py`: the check,
+    the state rebuilt from it and B⁻¹; calls from outside the package, such
+    as HiGHS's, are not counted).  Yields a list of the names called."""
     from minilp_tpu_torch.engine import hostlp
     from minilp_tpu_torch.ops.kernels import batched_simplex as bs
-    from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
 
     calls = []
-    targets = [(bs, "_verify_f64"), (ss, "_verify_f64"), (hostlp, "factorize_basis"),
+    targets = [(bs, "_verify_f64"), (hostlp, "factorize_basis"),
                (np.linalg, "inv"), (np.linalg, "solve")]
     saved = [getattr(mod, name) for mod, name in targets]
 
@@ -812,8 +811,6 @@ class CompareK3:
 
     def run(self, tag, A, b, c, lo, hi, *, slack0, max_iter=2000, reps=1,
             paths_may_part=False):
-        from minilp_tpu_torch.ops.kernels.batched_simplex import verify_rows_f64
-
         torch, ps = self.torch, self.ps
         B, m, n = A.shape
         args = ps.upload_packed(A, b, c, lo, hi, pack=PACK, device=DEVICE)
@@ -829,7 +826,7 @@ class CompareK3:
         if not torch.equal(out_k, glob):
             raise AssertionError(f"{tag}: the {layout} and global layouts differ")
         out_p, ms_p = timed(torch, lambda: ps.packed_plain(*args, **kw), 1)
-        rk, rp = (verify_rows_f64(o.cpu().numpy(), A, b, c, lo, hi) for o in (out_k, out_p))
+        rk, rp = (verify_rows(o.cpu().numpy(), A, b, c, lo, hi) for o in (out_k, out_p))
         if paths_may_part:
             err, parted = agree_where_paths_agree(tag, rk, rp)
             rel = float("nan")
@@ -852,6 +849,19 @@ class CompareK3:
             f"lockstep={packs.max(1).sum() * PACK / max(int(rk.niter.sum()), 1):.3f} "
             f"max_rel_obj_diff={rel:.3e} kernel_ms={ms_k:.3f} plain_ms={ms_p:.3f}")
         return rk
+
+
+def verify_rows(rows, A, b, c, lo, hi):
+    """The host's exact f64 check (`_verify_f64`) of K1's or K3's output
+    rows (B, m + n + 2), ``[basis | vstat | status | niter]``, on the host
+    batch, as a `BatchResult`."""
+    from minilp_tpu_torch.ops.kernels import batched_simplex as bs
+
+    B, m, n = np.shape(A)
+    rows = np.asarray(rows).reshape(B, m + n + 2)
+    basis, vstat, status = rows[:, :m], rows[:, m:m + n], rows[:, m + n]
+    obj, verified, x = bs._verify_f64(A, b, c, lo, hi, basis, vstat, status)
+    return bs.BatchResult(basis, vstat, status, rows[:, m + n + 1], obj, verified, x)
 
 
 def agree_where_paths_agree(tag, rk, rp):
@@ -1241,7 +1251,7 @@ def compare_basis(torch, cases=BASIS_CASES):
     against the host's check, on the main path's own final bases (module
     docstring); returns each case's figures."""
     from minilp_tpu_torch import SolverOptions
-    from minilp_tpu_torch.engine import driver
+    from minilp_tpu_torch.engine import certificate, driver
     from minilp_tpu_torch.ops.kernels import basis_f64
     from minilp_tpu_torch.ops.kernels import batched_simplex as bs
     from minilp_tpu_torch.status import Status
@@ -1285,7 +1295,7 @@ def compare_basis(torch, cases=BASIS_CASES):
         host = driver.EngineHandle(can, st._replace(Binv=np.zeros((0, 0))), handle.problem,
                                    SolverOptions(device="cpu"))
         t0 = time.perf_counter()
-        certified = host._certify_timed()
+        certified = host.certify()
         ms_h = (time.perf_counter() - t0) * 1e3
         with np.errstate(invalid="ignore"):
             oh, vh, xh = bs._verify_f64(*(v[None] for v in (can.A, can.b, can.c, can.lo,
@@ -1297,7 +1307,7 @@ def compare_basis(torch, cases=BASIS_CASES):
             raise AssertionError(f"{tag}: flags (certified, verified, singular) kernel "
                                  f"{flags(ck)}, plain {flags(cp)}, host "
                                  f"{(certified, bool(vh[0]))}")
-        rel = REL_BASIS[m >= driver._SPARSE_HOST_M]
+        rel = REL_BASIS[m >= certificate.SPARSE_HOST_M]
         refs = [("plain", cp.obj, cp.x, REL_BASIS[False]),
                 ("the host's _verify_f64", oh[0], xh[0], REL_BASIS[False])]
         if certified:  # the host's certify serves its values only then
@@ -2290,8 +2300,10 @@ def phases(torch, highs) -> int:
     import minilp_tpu_torch
     from minilp_tpu_torch import OptimizationDirection, Problem, ComparisonOp, SolverOptions
     from minilp_tpu_torch.ops.kernels import batched_simplex as bs, build
+    from minilp_tpu_torch.engine import certificate
     from minilp_tpu_torch.engine.driver import streaming_options
     from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
+    from minilp_tpu_torch.status import Status
     from minilp_tpu_torch.utils import k1_split, k2_split, profiling
     from minilp_tpu_torch.utils.synth import netlib_shaped_problem, random_batch
 
@@ -2357,15 +2369,17 @@ def phases(torch, highs) -> int:
         t0 = time.perf_counter()
         res = ss.solve_streaming(can.A, can.b, can.c, can.lo, can.hi,
                                  **dict(k2_options(can), chunk_iters=chunk))
-        runs[chunk] = res
+        # the claim's f64 check, as the driver's `_finish_claim` makes it
+        cert = certificate.check(can, res.basis, res.vstat, SolverOptions())
+        verified = int(res.status) == int(Status.OPTIMAL) and cert.verified
+        runs[chunk] = (int(res.status), verified, cert.obj)
         log(f"  25fv47 solve_streaming chunk_iters={chunk}: status={int(res.status)} "
-            f"verified={bool(res.verified)} pivots={int(res.niter)} obj={float(res.obj)!r} "
+            f"verified={verified} pivots={int(res.niter)} obj={cert.obj!r} "
             f"wall_s={time.perf_counter() - t0:.3f}")
     one, chunked = runs["auto"], runs[2048]
-    if (int(one.status), bool(one.verified)) != (int(chunked.status), bool(chunked.verified)):
+    if one[:2] != chunked[:2]:
         raise AssertionError("25fv47: chunked and single-launch K2 disagree")
-    if not bool(one.verified) or abs(float(one.obj) - float(chunked.obj)) > \
-            REL_KERNEL * (1.0 + abs(float(one.obj))):
+    if not one[1] or abs(one[2] - chunked[2]) > REL_KERNEL * (1.0 + abs(one[2])):
         raise AssertionError("25fv47: chunked and single-launch objectives differ")
     hi2, Binv0 = tightened_warm(can, cold2[0], cold2[6])
     cmp2.run("25fv47_warm_tightened", can, hi=hi2, warm_state=(cold2[0], cold2[1], Binv0))

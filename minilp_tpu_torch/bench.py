@@ -53,6 +53,7 @@ a device synchronisation, unrounded.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -62,7 +63,7 @@ import numpy as np
 import torch
 
 from .canonical import canonicalize
-from .engine import crossover, driver, pdhg
+from .engine import certificate, crossover, driver, pdhg
 from .ops.kernels import (basis_f64, batched_simplex, build, certify, packed_simplex,
                           streaming_simplex)
 from .options import SolverOptions
@@ -331,7 +332,9 @@ def _incremental_routing_metric(*, device, shape=SINGLE_LP["256x1024"]) -> dict:
 def _streaming_pivot_rate(*, device, shape=NETLIB_SHAPES["25fv47"]) -> dict:
     """K2's pivot rate at the 25fv47 shape on the driver's own launch: the
     LP presolved and canonicalized as `Problem.solve()` does it, through
-    `solve_streaming` with the driver's `streaming_options`; solve 0 is a
+    `solve_streaming` with the driver's `streaming_options`, then the f64
+    check of its basis (`certificate.check`, on a fresh copy of the form
+    each time, so that none is served from a kept one); solve 0 is a
     warm-up, 1-3 give the spread (`bench.py:327-387`)."""
     opts = SolverOptions(device=device)
     prob = netlib_shaped_problem(*shape, seed=1)
@@ -342,8 +345,10 @@ def _streaming_pivot_rate(*, device, shape=NETLIB_SHAPES["25fv47"]) -> dict:
     walls, iters, dev_walls = [], [], []
     for _rep in range(4):
         profiling.reset_stages()
+        fresh = dataclasses.replace(can)
         t0 = time.perf_counter()
         res = streaming_simplex.solve_streaming(can.A, can.b, can.c, can.lo, can.hi, **options)
+        certificate.check(fresh, res.basis, res.vstat, opts)
         walls.append(time.perf_counter() - t0)
         iters.append(int(res.niter))
         st = profiling.stages()

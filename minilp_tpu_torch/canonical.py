@@ -62,6 +62,11 @@ class CanonicalLP:
     obj_sign: float
     #: per-active-row ComparisonOp (host-side metadata for incremental ops)
     row_ops: List[ComparisonOp] = dataclasses.field(default_factory=list)
+    #: what the exact f64 check of a basis (`engine/certificate.py`) keeps of
+    #: this form: its f64 A on a card ("A") and its last certificate
+    #: ("cert"), each under the key it was made for; a copy starts empty
+    checks: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                     compare=False)
 
     def slack_col(self, row: int) -> int:
         return self.nv + row

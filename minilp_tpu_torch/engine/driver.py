@@ -16,13 +16,10 @@ uncertified claim goes to the exact polish, any other kernel claim to the
 f64 engine.
 
 The f64 check of the final basis, the certified state rebuilt from it,
-`certify()` and the dense B⁻¹ of a warm restart run on the card for a card
-solve (`_certify_on_device`): one launch of the basis kernel
-(`ops/kernels/basis_f64.py`) factors the basis once, and its certificate
-serves every seam that asks for the same (basis, vstat) of the same
-canonical form (`_basis_certificate`).  A CPU solve keeps the
-JAX package's host code (numpy's LU below `_SPARSE_HOST_M` rows, SuperLU
-above).
+`certify()` and the dense B⁻¹ of a warm restart all ask `certificate.check`
+(`engine/certificate.py`): the basis kernel on a card solve, the host's LU
+on a CPU solve, one factorization for every seam that asks for the same
+(basis, vstat) of the same canonical form.
 
 Above `_CROSSOVER_M` padded rows a cold f64 solve starts with the PDHG →
 simplex crossover (`engine/crossover.py`: the PDHG stage on the device,
@@ -43,7 +40,6 @@ launches under the TPU worker's watchdog, and an f32 head start for f64).
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 from typing import Dict, Tuple
 
 import numpy as np
@@ -54,13 +50,9 @@ from ..canonical import CanonicalLP, canonicalize, nonbasic_values
 from ..options import SolverOptions
 from ..status import Status, VarStat
 from ..utils import profiling, records
-from . import hostlp, incremental
+from . import certificate, hostlp, incremental
 from .primal import solve_canonical
 from .state import SimplexState, state_to_numpy
-
-#: padded-row threshold above which host-side exact linear algebra goes
-#: through the sparse LU (engine/hostlp.py) instead of dense LAPACK
-_SPARSE_HOST_M = 1024
 
 #: padded-row threshold above which a cold f64 solve starts with the PDHG →
 #: simplex crossover (the JAX package's literal 2048)
@@ -105,86 +97,13 @@ def _raise_for_status(status: int) -> None:
     raise api.SolverFailure(f"solver terminated with status {Status(status).name}")
 
 
-def _certify_on_device(opts: SolverOptions) -> bool:
-    """Whether the solve's final bases are certified on its device by the
-    basis kernel: a card solve's are; a CPU solve keeps the host code."""
-    return _device(opts).type == "cuda"
-
-
-def _A_version(can: CanonicalLP) -> tuple:
-    """What tells one A of `can` from another: an edit of A activates a
-    padding row (`incremental._append_row`: `can.m` grows), and a larger
-    padding is a new shape."""
-    return (can.m,) + can.A.shape
-
-
-def _device_A(can: CanonicalLP, dev: torch.device) -> torch.Tensor:
-    """`can.A` in f64 on `dev`, uploaded once for each of its versions
-    (`_A_version`)."""
-    key = (dev, _A_version(can))
-    cached = getattr(can, "_A_dev", None)
-    if cached is None or cached[0] != key:
-        A = np.ascontiguousarray(can.A, dtype=np.float64)
-        with profiling.span("upload", dev):
-            cached = (key, torch.as_tensor(A, device=dev))
-        can._A_dev = cached
-    return cached[1]
-
-
-def _certificate_key(can: CanonicalLP, basis, vstat, tol: float) -> tuple:
-    """What a certificate of (basis, vstat) on `can` depends on: A's version
-    (`_A_version`), a digest of b, c, lo, hi, basis and vstat, and `tol`.
-    So an edit of `can` needs no call to drop it."""
-    digest = hashlib.blake2b(digest_size=16)
-    for v, dt in ((can.b, np.float64), (can.c, np.float64), (can.lo, np.float64),
-                  (can.hi, np.float64), (basis, np.int32), (vstat, np.int32)):
-        digest.update(np.ascontiguousarray(v, dtype=dt).tobytes())
-    return _A_version(can), digest.digest(), float(tol)
-
-
-def _launch_certificate(can: CanonicalLP, basis, vstat, opts: SolverOptions, **kw):
-    """One launch of the basis kernel on (basis, vstat) of `can`, on the
-    solve's device (`basis_f64.certificate`; `kw` its `inverse`, `row`,
-    `tol`)."""
-    from ..ops.kernels import basis_f64
-
-    dev = _device(opts)
-    A = _device_A(can, dev)
-    put = lambda v, dt: torch.as_tensor(np.ascontiguousarray(v, dtype=dt), device=dev)
-    with profiling.span("upload", dev):
-        vecs = [put(v, np.float64) for v in (can.b, can.c, can.lo, can.hi)]
-        vecs += [put(basis, np.int32), put(vstat, np.int32)]
-    return basis_f64.certificate(A, *vecs, int(Status.OPTIMAL), **kw)
-
-
-def _basis_certificate(can: CanonicalLP, basis, vstat, opts: SolverOptions, *,
-                       inverse: bool = False, tol: float = 1e-7):
-    """The certificate of (basis, vstat) on `can` (`basis_f64.Certificate`:
-    x_B, y, d, x, obj, the feasibility flags at `tol`, `singular`, and B⁻¹
-    with `inverse`), from ONE launch of the basis kernel on the solve's
-    device.  `can` keeps its last certificate: a later call for the same
-    (basis, vstat, tol) on the same `can` takes it while it has what is
-    asked (`_certificate_key`)."""
-    key = _certificate_key(can, basis, vstat, tol)
-    memo = getattr(can, "_basis_cert", None)
-    if memo is not None and memo[0] == key and (
-            not inverse or memo[1].Binv is not None or memo[1].singular):
-        return memo[1]
-    cert = _launch_certificate(can, basis, vstat, opts, inverse=inverse, tol=tol)
-    can._basis_cert = (key, cert)
-    return cert
-
-
 def _exact_inverse(can: CanonicalLP, basis, vstat, opts: SolverOptions) -> np.ndarray:
-    """The exact f64 B⁻¹ of `basis`: the basis kernel's on a card solve,
-    numpy's inverse on the host; a singular basis raises LinAlgError on
-    both."""
-    if _certify_on_device(opts):
-        binv = _basis_certificate(can, basis, vstat, opts, inverse=True).Binv
-        if binv is None:
-            raise np.linalg.LinAlgError("Singular matrix")
-        return binv.copy()  # the caller's own: the certificate stays as it was
-    return np.linalg.inv(can.A[:, np.asarray(basis)])
+    """The exact f64 B⁻¹ of `basis` (`certificate.check`); a singular basis
+    raises LinAlgError."""
+    binv = certificate.check(can, basis, vstat, opts, inverse=True).Binv
+    if binv is None:
+        raise np.linalg.LinAlgError("Singular matrix")
+    return binv.copy()  # the caller's own: the certificate stays as it was
 
 
 class EngineHandle:
@@ -194,8 +113,8 @@ class EngineHandle:
     the `Solution` facade owns this handle.  Its state is host numpy: every
     consumer (`certify`, `var_value`) reads it on the host.  The reported
     solution is *certified*: the exact vertex is recomputed from
-    (basis, vstat) in f64 and checked primal + dual feasible, by the basis
-    kernel on a card solve and on the host otherwise.
+    (basis, vstat) in f64 and checked primal + dual feasible
+    (`certificate.check`).
     """
 
     def __init__(
@@ -236,29 +155,13 @@ class EngineHandle:
         already present)."""
         if not self.binv_stale:
             return
-        can = self.can
-        basis = np.asarray(self._state.basis)
-        on_device = _certify_on_device(self.opts)
-        with profiling.span("state_rebuild", host=not on_device):
-            if on_device:
-                Binv = _basis_certificate(can, basis, self._state.vstat, self.opts,
-                                          inverse=True).Binv
-                # the handle's own copy: the certificate stays as it was
-                Binv = None if Binv is None else Binv.copy()
-            else:
-                A = can.A.astype(np.float64)
-                if can.M >= _SPARSE_HOST_M:
-                    lu = hostlp.factorize_basis(A, basis, A_csc=can.csc())
-                    Binv = None if lu is None else lu.lu.solve(np.eye(can.M))
-                else:
-                    try:
-                        Binv = np.linalg.inv(A[:, basis])
-                    except np.linalg.LinAlgError:
-                        Binv = None
-            if Binv is None:
-                # certified bases are nonsingular; an identity seed keeps the
-                # handle usable and a warm restart's Newton telltale catches it
-                Binv = np.eye(can.M)
+        with certificate.span("state_rebuild", self.opts):
+            Binv = certificate.check(self.can, self._state.basis, self._state.vstat, self.opts,
+                                     inverse=True).Binv
+            # certified bases are nonsingular; an identity seed keeps the
+            # handle usable and a warm restart's Newton telltale catches it;
+            # else the handle's own copy: the certificate stays as it was
+            Binv = np.eye(self.can.M) if Binv is None else Binv.copy()
             self._state = self._state._replace(
                 Binv=np.asarray(Binv, dtype=_np_dtype(self.opts)))
         self.binv_stale = False
@@ -266,12 +169,8 @@ class EngineHandle:
     # -- accessors ---------------------------------------------------------------
     def _x_full(self) -> np.ndarray:
         if self._x_cache is None:
-            vstat = np.asarray(self._state.vstat)
-            lo = self.can.lo.astype(np.float64)
-            hi = self.can.hi.astype(np.float64)
-            x = np.where(vstat == int(VarStat.AT_LOWER), lo, 0.0)
-            x = np.where(vstat == int(VarStat.AT_UPPER), hi, x)
-            x = np.where(vstat == int(VarStat.FIXED), lo, x)
+            x = nonbasic_values(np.asarray(self._state.vstat), self.can.lo.astype(np.float64),
+                                self.can.hi.astype(np.float64))
             x[np.asarray(self._state.basis)] = np.asarray(self._state.xB)
             self._x_cache = x
         return self._x_cache
@@ -279,63 +178,14 @@ class EngineHandle:
     def certify(self, tol: float = 1e-7) -> bool:
         """Recompute the vertex exactly in f64 from (basis, vstat) and check
         primal + dual feasibility; on success the handle serves exact values."""
-        with profiling.span("certify", host=not _certify_on_device(self.opts)):
-            return self._certify_timed(tol)
-
-    def _certify_timed(self, tol: float = 1e-7) -> bool:
-        can = self.can
-        basis = np.asarray(self._state.basis)
-        vstat = np.asarray(self._state.vstat)
-        if _certify_on_device(self.opts):
-            cert = _basis_certificate(can, basis, vstat, self.opts, tol=tol)
-            self.certified = not cert.singular and cert.pfeas and cert.dfeas
-            if self.certified:
-                self._x_cache = cert.x.copy()
-                self._exact_obj = cert.obj
-            return self.certified
-        A = can.A.astype(np.float64)
-        lo = can.lo.astype(np.float64)
-        hi = can.hi.astype(np.float64)
-        c = can.c.astype(np.float64)
-        xN = np.where(vstat == int(VarStat.AT_LOWER), lo, 0.0)
-        xN = np.where(vstat == int(VarStat.AT_UPPER), hi, xN)
-        xN = np.where(vstat == int(VarStat.FIXED), lo, xN)
-        xN = np.where(vstat == int(VarStat.BASIC), 0.0, xN)
-        if can.M >= _SPARSE_HOST_M:
-            lu = hostlp.factorize_basis(A, basis, A_csc=can.csc())
-            if lu is None:
-                self.certified = False
-                return False
-            xB = lu.lu.solve(can.b.astype(np.float64) - A @ xN)
-            y = lu.lu.solve(c[basis], trans="T")
-        else:
-            Bmat = A[:, basis]
-            try:
-                xB = np.linalg.solve(Bmat, can.b.astype(np.float64) - A @ xN)
-                y = np.linalg.solve(Bmat.T, c[basis])
-            except np.linalg.LinAlgError:
-                self.certified = False
-                return False
-        d = c - y @ A
-        loB, hiB = lo[basis], hi[basis]
-        pfeas = bool(((xB >= loB - tol) & (xB <= hiB + tol)).all())
-        at_lo = vstat == int(VarStat.AT_LOWER)
-        at_hi = vstat == int(VarStat.AT_UPPER)
-        free = vstat == int(VarStat.FREE)
-        dfeas = bool(
-            (np.where(at_lo, d >= -tol, True)
-             & np.where(at_hi, d <= tol, True)
-             & np.where(free, np.abs(d) <= tol, True)).all()
-        )
-        if not (pfeas and dfeas):
-            self.certified = False
-            return False
-        x = xN.copy()
-        x[basis] = xB
-        self._x_cache = x
-        self._exact_obj = float(c @ x)
-        self.certified = True
-        return True
+        with certificate.span("certify", self.opts):
+            cert = certificate.check(self.can, self._state.basis, self._state.vstat, self.opts,
+                                     tol=tol)
+        self.certified = cert.verified
+        if self.certified:
+            self._x_cache = cert.x.copy()
+            self._exact_obj = cert.obj
+        return self.certified
 
     def user_objective(self) -> float:
         obj = self._exact_obj if self._exact_obj is not None else float(self._state.obj)
@@ -481,65 +331,33 @@ def _state_from_certified_basis(
     lu=None,
 ) -> SimplexState | None:
     """Exact f64 SimplexState (host numpy) rebuilt from a certified
-    (basis, vstat).
-
-    One LU gives (xB, d, obj) consistent with the basis: the basis kernel's
-    certificate on a card solve (`_basis_certificate`: the route's own
-    check's when it made one; `lu`, a host route's factors, is then not
-    used), a host LU otherwise.  The dense B⁻¹ is a (0, 0) placeholder that `EngineHandle.ensure_binv`
+    (basis, vstat): (xB, d, obj) from its certificate (`certificate.check`,
+    the route's own check's when it made one; `lu`, a host route's factors).
+    The dense B⁻¹ is a (0, 0) placeholder that `EngineHandle.ensure_binv`
     fills on first access.  Returns None on a singular basis (caller falls
     back).  Its host part is the host span `state_rebuild_host`."""
     with profiling.span("state_rebuild"):
-        cert = _basis_certificate(can, basis, vstat, opts) if _certify_on_device(opts) else None
-        if cert is not None and cert.singular:
+        cert = certificate.check(can, basis, vstat, opts, lu=lu)
+        if cert.singular:
             return None
         with profiling.span("state_rebuild_host", host=True):
-            return _state_from_basis(can, basis, vstat, niter, opts, lu, cert)
-
-
-def _state_from_basis(can: CanonicalLP, basis, vstat, niter: int, opts: SolverOptions,
-                      lu, cert) -> SimplexState | None:
-    """`_state_from_certified_basis`'s host part: (xB, d, obj) from the
-    card's certificate `cert`, else from a host LU."""
-    if cert is not None:
-        xB, d, obj = cert.xB.copy(), cert.d.copy(), cert.obj
-    else:
-        A = can.A.astype(np.float64)
-        xN = nonbasic_values(vstat, can.lo, can.hi)
-        if can.M >= _SPARSE_HOST_M:
-            if lu is None:
-                lu = hostlp.factorize_basis(A, basis, A_csc=can.csc())
-            if lu is None:
-                return None
-            xB = lu.lu.solve(can.b.astype(np.float64) - A @ xN)
-            y = lu.lu.solve(can.c[basis].astype(np.float64), trans="T")
-        else:
-            Bmat = A[:, basis]
-            try:
-                xB = np.linalg.solve(Bmat, can.b.astype(np.float64) - A @ xN)
-                y = np.linalg.solve(Bmat.T, can.c[basis].astype(np.float64))
-            except np.linalg.LinAlgError:
-                return None
-        d = can.c - y @ A
-        obj = float(can.c[basis] @ xB + can.c @ xN)
-    Binv = np.zeros((0, 0))  # lazy placeholder (handle materializes)
-    d[vstat == int(VarStat.BASIC)] = 0.0
-    dtype = _np_dtype(opts)
-    state = SimplexState(
-        basis=np.asarray(basis, dtype=np.int32),
-        vstat=np.asarray(vstat, dtype=np.int8),
-        xB=np.asarray(xB, dtype=dtype),
-        d=np.asarray(d, dtype=dtype),
-        Binv=np.asarray(Binv, dtype=dtype),
-        obj=np.asarray(obj, dtype=dtype),
-        niter=np.int32(int(niter)),
-        status=np.int32(int(Status.OPTIMAL)),
-        noimprove=np.int32(0),
-        best=np.asarray(np.inf, dtype=dtype),
-        weights=np.ones_like(d.astype(dtype)),
-        phase=np.int32(2),
-    )
-    return state
+            d = cert.d.copy()
+            d[np.asarray(vstat) == int(VarStat.BASIC)] = 0.0
+            dtype = _np_dtype(opts)
+            return SimplexState(
+                basis=np.asarray(basis, dtype=np.int32),
+                vstat=np.asarray(vstat, dtype=np.int8),
+                xB=np.array(cert.xB, dtype=dtype),
+                d=np.asarray(d, dtype=dtype),
+                Binv=np.zeros((0, 0), dtype=dtype),  # lazy placeholder (handle materializes)
+                obj=np.asarray(cert.obj, dtype=dtype),
+                niter=np.int32(int(niter)),
+                status=np.int32(int(Status.OPTIMAL)),
+                noimprove=np.int32(0),
+                best=np.asarray(np.inf, dtype=dtype),
+                weights=np.ones_like(d.astype(dtype)),
+                phase=np.int32(2),
+            )
 
 
 def _host_polish_from_basis(
@@ -565,7 +383,7 @@ def _host_polish_from_basis(
     with profiling.span("host_polish", host=True):
         res = hostlp.solve_host_sparse(
             can.A, can.b, can.c, can.lo, can.hi, basis, vstat, opts=opts,
-            A_csc=can.csc() if can.M >= _SPARSE_HOST_M else None,
+            A_csc=can.csc() if can.M >= certificate.SPARSE_HOST_M else None,
         )
     if res is not None and int(res.status) in terminal_ok:
         state = _state_from_certified_basis(
@@ -602,15 +420,14 @@ def _try_megakernel_solve(can: CanonicalLP, opts: SolverOptions,
     fault raises.  `warm_state=(basis, vstat, Binv)` (unbatched host arrays)
     re-solves from a previous basis: the incremental API's warm restart.
     """
-    from ..ops.kernels.batched_simplex import megakernel_rows, upload, verify_rows_f64
+    from ..ops.kernels.batched_simplex import megakernel_rows, upload
 
     dev = _device(opts)
     if warm_state is not None:
         warm_state = tuple(np.asarray(x)[None] for x in warm_state)
     lp = [x[None] for x in (can.A, can.b, can.c, can.lo, can.hi)]
     with profiling.span("megakernel", dev):
-        # f32 on the device; the exact f64 check of the basis on the card
-        # (the basis kernel) for a card solve, else on the host
+        # f32 on the device; `_finish_claim` checks the basis in exact f64
         with profiling.span("upload", dev):
             inputs = upload(dev, *lp, dtype=np.float32)
         # K1's launch alone, with the copy of its result rows back
@@ -623,19 +440,10 @@ def _try_megakernel_solve(can: CanonicalLP, opts: SolverOptions,
                 warm_state=warm_state,
             ).cpu().numpy()
         profiling.bump_stage("megakernel_pivots", int(rows[0, -1]))
-        if _certify_on_device(opts):
-            m, n = can.M, can.N
-            basis, vstat = rows[0, :m], rows[0, m:m + n]
-            status, niter = int(rows[0, m + n]), int(rows[0, m + n + 1])
-            cert = _basis_certificate(can, basis, vstat, opts)
-            verified = cert.verified and status == int(Status.OPTIMAL)
-        else:
-            res = verify_rows_f64(rows, *lp)
-            basis, vstat = res.basis[0], res.vstat[0]
-            status, niter = int(res.status[0]), int(res.niter[0])
-            verified = bool(res.verified[0])
-    return _finish_claim("megakernel", _K1_POLISHED, can, np.asarray(basis),
-                         np.asarray(vstat).astype(np.int8), status, niter, verified, opts)
+    m, n = can.M, can.N
+    return _finish_claim("megakernel", _K1_POLISHED, can, rows[0, :m],
+                         rows[0, m:m + n].astype(np.int8), int(rows[0, m + n]),
+                         int(rows[0, m + n + 1]), opts)
 
 
 def _k1_opt_tol(can: CanonicalLP, opts: SolverOptions) -> float:
@@ -647,15 +455,16 @@ def _k1_opt_tol(can: CanonicalLP, opts: SolverOptions) -> float:
 
 
 def _finish_claim(route: str, polished: tuple, can: CanonicalLP, basis, vstat, status: int,
-                  niter: int, verified: bool, opts: SolverOptions) -> SimplexState | None:
+                  niter: int, opts: SolverOptions) -> SimplexState | None:
     """A kernel route's claim (K1's or K2's: `route` is "megakernel" or
-    "streaming"): the exact f64 state when the basis passed its f64 check;
-    the host polish from the basis for a claim whose status is in
+    "streaming"): the exact f64 state when it is OPTIMAL and the basis passes
+    its f64 check (`certificate.check`, whose certificate the state and
+    `certify()` then share); the host polish from the basis for a claim whose status is in
     `polished` that failed it, as a basis after many f32 pivots is
     normally a few exact pivots from optimal and the polish banks the
     device's work; None for any other claim (the caller runs the host
     engines).  Counted as `route.<route>.polished` or `.declined`."""
-    if verified:
+    if status == int(Status.OPTIMAL) and certificate.check(can, basis, vstat, opts).verified:
         return _state_from_certified_basis(can, basis, vstat, niter, opts)
     if status in polished:
         profiling.bump_stage(f"route.{route}.polished")
@@ -727,15 +536,11 @@ def _try_streaming_solve(can: CanonicalLP, opts: SolverOptions,
     from ..ops.kernels.streaming_simplex import solve_streaming
 
     options = streaming_options(can, opts)
+    certificate.upload(can, opts)  # before the launch: outside the span `finish`
     res = solve_streaming(can.A, can.b, can.c, can.lo, can.hi, **options,
-                          warm_state=warm_state, A_f64=_device_A(can, options["device"]))
-    basis = np.asarray(res.basis)
-    vstat = np.asarray(res.vstat).astype(np.int8)
-    if res.cert is not None:
-        # K2's check on the card: kept as `_basis_certificate` keeps its own
-        can._basis_cert = (_certificate_key(can, basis, vstat, 1e-7), res.cert)
-    return _finish_claim("streaming", _K2_POLISHED, can, basis, vstat, int(res.status),
-                         int(res.niter), bool(res.verified), opts)
+                          warm_state=warm_state)
+    return _finish_claim("streaming", _K2_POLISHED, can, res.basis, res.vstat.astype(np.int8),
+                         int(res.status), int(res.niter), opts)
 
 
 def _solve_engine(can: CanonicalLP, opts: SolverOptions) -> SimplexState:
@@ -779,11 +584,8 @@ def solve_problem(problem: "api.Problem") -> "api.Solution":
         with _route("megakernel") as route:
             state = _try_megakernel_solve(can, opts)
         if state is not None:
-            _emit_record("cold_solve_megakernel", can, state,
-                         int(Status.OPTIMAL), route.wall_s, opts)
-            handle = EngineHandle(can, state, problem, opts)
-            handle.certify()
-            return api.Solution(handle, user_problem)
+            return api.Solution(_handle("cold_solve_megakernel", can, state, route.wall_s,
+                                        problem, opts), user_problem)
         # uncertified polish failure / non-optimal claim → f64 engine below
     if (opts.dtype == "float64" and can.M > _CROSSOVER_M
             and opts.crossover != "never" and opts.use_streaming != "always"):
@@ -796,30 +598,21 @@ def solve_problem(problem: "api.Problem") -> "api.Solution":
         with _route("crossover") as route:
             res = solve_cold_crossover(can, opts)
         if res is not None:
-            status = int(res.status)
             state = _state_from_certified_basis(
                 can, res.basis, res.vstat, res.niter, opts, lu=res.lu,
             )
-            if state is not None and status != int(Status.OPTIMAL):
-                state = state._replace(status=np.int32(status))
             if state is not None:
-                _emit_record("cold_solve_crossover", can, state, status,
-                             route.wall_s, opts)
-                _raise_for_status(status)
-                handle = EngineHandle(can, state, problem, opts)
-                handle.certify()
-                return api.Solution(handle, user_problem)
+                state = state._replace(status=np.int32(int(res.status)))
+                return api.Solution(_handle("cold_solve_crossover", can, state, route.wall_s,
+                                            problem, opts), user_problem)
         # crossover declined (PDHG far from optimum / singular crash) →
         # K2, then the host engines below
     if _streaming_eligible(can, opts):
         with _route("streaming") as route:
             state = _try_streaming_solve(can, opts)
         if state is not None:
-            _emit_record("cold_solve_streaming", can, state,
-                         int(Status.OPTIMAL), route.wall_s, opts)
-            handle = EngineHandle(can, state, problem, opts)
-            handle.certify()
-            return api.Solution(handle, user_problem)
+            return api.Solution(_handle("cold_solve_streaming", can, state, route.wall_s,
+                                        problem, opts), user_problem)
         # uncertified non-optimal claim or failed polish → host engines below
     if opts.dtype == "float64" and can.M > 2048:
         # Above the kernels' envelope with the crossover declined: the host
@@ -831,22 +624,15 @@ def solve_problem(problem: "api.Problem") -> "api.Solution":
                 niter0=0, accept_any_terminal=True,
             )
         if state is not None:
-            status = int(state.status)
-            _emit_record("cold_solve_host", can, state, status, route.wall_s, opts)
-            _raise_for_status(status)
-            handle = EngineHandle(can, state, problem, opts)
-            handle.certify()
-            return api.Solution(handle, user_problem)
+            return api.Solution(_handle("cold_solve_host", can, state, route.wall_s,
+                                        problem, opts), user_problem)
     with _route("engine") as route:
         state = _solve_engine(can, opts)
-        status = int(state.status)
-    _emit_record("cold_solve", can, state, status, route.wall_s, opts)
-    _raise_for_status(status)
-    handle = EngineHandle(can, state, problem, opts)
     # Opportunistic certification for every dtype: one f64 solve against the
     # final basis (on the card for a card solve); when it passes, exact
     # values are served.
-    if not handle.certify() and status == int(Status.OPTIMAL):
+    handle = _handle("cold_solve", can, state, route.wall_s, problem, opts)
+    if not handle.certified and int(state.status) == int(Status.OPTIMAL):
         # An OPTIMAL claim that fails exact certification is a drifted stop:
         # repair with exact host pivots from the claimed basis.
         # accept_any_terminal: an exact INFEASIBLE/UNBOUNDED finding ends the
@@ -860,6 +646,18 @@ def solve_problem(problem: "api.Problem") -> "api.Solution":
             handle = EngineHandle(can, polished, problem, opts)
             handle.certify()
     return api.Solution(handle, user_problem)
+
+
+def _handle(event: str, can: CanonicalLP, state: SimplexState, wall_s: float,
+            problem: "api.Problem", opts: SolverOptions) -> EngineHandle:
+    """A route's final state as the solve's handle: the solve record
+    `event`, a terminal status other than OPTIMAL raised, then `certify()`."""
+    status = int(state.status)
+    _emit_record(event, can, state, status, wall_s, opts)
+    _raise_for_status(status)
+    handle = EngineHandle(can, state, problem, opts)
+    handle.certify()
+    return handle
 
 
 def _route(name: str) -> profiling.span:

@@ -21,8 +21,8 @@ Routes of one re-solve, in order (as in the JAX package):
   1. host first (`_try_host_resolve`): the exact f64 sparse simplex of
      `engine/hostlp.py`, its dual first for the dual edits; skipped when the
      options force a kernel;
-  2. K1 warm (`_try_megakernel_resolve`), then K2 warm
-     (`_try_streaming_resolve`), each where the driver's routing takes it;
+  2. K1 warm, then K2 warm (`_try_kernel_resolve`), each where the
+     driver's routing takes it;
   3. the f64 torch engines, `engine/dual.py::resolve_dual` or
      `engine/primal.py::solve_canonical` warm, on the solve's device, with an
      exact-inverse retry after a Newton divergence.
@@ -46,8 +46,8 @@ from .. import api
 from ..canonical import canonicalize, slack_bounds
 from ..status import Status, VarStat
 from ..utils import profiling
+from . import certificate, hostlp
 from . import driver as _driver
-from . import hostlp
 from .dual import resolve_dual
 from .primal import solve_canonical
 from .state import state_to_numpy
@@ -143,7 +143,7 @@ def _try_host_resolve(handle, event: str, prefer_dual: bool = False) -> bool:
     basis0 = np.asarray(handle._state.basis)
     vstat0 = np.asarray(handle._state.vstat)
     with _driver._route("host") as route:
-        csc = can.csc() if can.M >= _driver._SPARSE_HOST_M else None
+        csc = can.csc() if can.M >= certificate.SPARSE_HOST_M else None
         res = None
         if prefer_dual:
             res = hostlp.solve_host_dual(
@@ -183,49 +183,32 @@ def _warm_state(handle) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     return np.asarray(state.basis), np.asarray(state.vstat), np.asarray(state.Binv)
 
 
-def _try_megakernel_resolve(handle, event: str) -> bool:
-    """Warm re-solve through K1 on the solve's device.
+def _try_kernel_resolve(handle, event: str, route: str) -> bool:
+    """Warm re-solve through K1 (`route` "megakernel") or K2 ("streaming")
+    on the solve's device.
 
-    The f32 kernel restarts from (basis, vstat, the maintained inverse) and
-    the result is certified in exact f64 before it is adopted.  Returns
-    False (the caller goes on down the routes) where K1 is not eligible, or
-    when its claim is uncertified and not OPTIMAL, or its polish failed:
-    INFEASIBLE from an f32 iterate is no certificate, so an exact engine
-    must confirm it.
+    The f32 kernel restarts from (basis, vstat, the maintained inverse), K2
+    on `can.A` with `slack0=can.nv`, and the driver's `_finish_claim`
+    certifies its claim in exact f64 before it is adopted, or polishes it
+    on the host.  Returns False (the caller goes on down the routes) where
+    the kernel is not eligible, or when its claim is uncertified and not
+    polished, or its polish failed: INFEASIBLE from an f32 iterate is no
+    certificate, so an exact engine must confirm it.
     """
     can = handle.can
-    if not _driver._megakernel_eligible(can, handle.opts):
+    eligible, solve = {
+        "megakernel": (_driver._megakernel_eligible, _driver._try_megakernel_solve),
+        "streaming": (_driver._streaming_eligible, _driver._try_streaming_solve),
+    }[route]
+    if not eligible(can, handle.opts):
         return False
     warm = _warm_state(handle)
-    with _driver._route("megakernel") as route:
-        state = _driver._try_megakernel_solve(can, handle.opts, warm_state=warm)
+    with _driver._route(route) as span:
+        state = solve(can, handle.opts, warm_state=warm)
     if state is None:
         return False
-    _driver._emit_record(event + "_megakernel", can, state,
-                         int(Status.OPTIMAL), route.wall_s, handle.opts)
-    _adopt(handle, state)
-    return True
-
-
-def _try_streaming_resolve(handle, event: str) -> bool:
-    """Warm re-solve through K2 on the solve's device.
-
-    As `_try_megakernel_resolve`, for the LPs the driver sends to K2: K2
-    restarts from (basis, vstat, the maintained inverse) on `can.A` with
-    `slack0=can.nv`, its claim is certified in exact f64, and an
-    uncertified OPTIMAL, NUMERICAL or MAX_ITER claim is polished on the
-    host from its basis.
-    """
-    can = handle.can
-    if not _driver._streaming_eligible(can, handle.opts):
-        return False
-    warm = _warm_state(handle)
-    with _driver._route("streaming") as route:
-        state = _driver._try_streaming_solve(can, handle.opts, warm_state=warm)
-    if state is None:
-        return False
-    _driver._emit_record(event + "_streaming", can, state,
-                         int(Status.OPTIMAL), route.wall_s, handle.opts)
+    _driver._emit_record(f"{event}_{route}", can, state,
+                         int(Status.OPTIMAL), span.wall_s, handle.opts)
     _adopt(handle, state)
     return True
 
@@ -233,8 +216,7 @@ def _try_streaming_resolve(handle, event: str) -> bool:
 def _run_engine_resolve(handle, event: str, run) -> None:
     """The f64 (or `opts.dtype`) torch engine warm on the solve's device:
     `run(args, basis, vstat, Binv0)` from the handle's state, again from the
-    exact inverse (`driver._exact_inverse`: the basis kernel's on a card
-    solve) after a Newton divergence."""
+    exact inverse (`driver._exact_inverse`) after a Newton divergence."""
     can, opts = handle.can, handle.opts
     dev = _driver._device(opts)
     dt = torch.float64 if opts.dtype == "float64" else torch.float32
@@ -257,9 +239,9 @@ def _run_engine_resolve(handle, event: str, run) -> None:
 def _run_dual_resolve(handle) -> None:
     if _try_host_resolve(handle, "dual_resolve", prefer_dual=True):
         return
-    if _try_megakernel_resolve(handle, "dual_resolve"):
+    if _try_kernel_resolve(handle, "dual_resolve", "megakernel"):
         return
-    if _try_streaming_resolve(handle, "dual_resolve"):
+    if _try_kernel_resolve(handle, "dual_resolve", "streaming"):
         return
     opts = handle.opts
     _run_engine_resolve(
@@ -271,9 +253,9 @@ def _run_dual_resolve(handle) -> None:
 def _run_primal_resolve(handle) -> None:
     if _try_host_resolve(handle, "primal_resolve"):
         return
-    if _try_megakernel_resolve(handle, "primal_resolve"):
+    if _try_kernel_resolve(handle, "primal_resolve", "megakernel"):
         return
-    if _try_streaming_resolve(handle, "primal_resolve"):
+    if _try_kernel_resolve(handle, "primal_resolve", "streaming"):
         return
     opts = handle.opts
     _run_engine_resolve(
@@ -408,28 +390,14 @@ def add_gomory_cut(handle, idx: int):
         raise ValueError("add_gomory_cut requires a fractional basic variable")
 
     # tableau row of the basic variable: α = (B⁻¹)_pos · A (a BTRAN row read)
-    if handle.binv_stale and _driver._certify_on_device(handle.opts):
-        # a lazy inverse on a card solve: the one row, from the basis
-        # kernel (the handle's inverse stays lazy, as the host's BTRAN
-        # leaves it)
-        cert = _driver._launch_certificate(can, basis, state.vstat, handle.opts, row=pos)
-        if cert.singular:
-            handle.ensure_binv()  # the identity fallback
-            Binv_row = np.asarray(handle._state.Binv[pos])
-        else:
-            Binv_row = cert.Binv[0]
-    elif handle.binv_stale:
-        # a lazy inverse: one sparse BTRAN (B⁻ᵀ e_pos), not the dense B⁻¹
-        lu = hostlp.factorize_basis(can.A.astype(np.float64), basis, A_csc=can.csc())
-        if lu is None:
-            handle.ensure_binv()  # the identity fallback
-            Binv_row = np.asarray(handle._state.Binv[pos])
-        else:
-            e = np.zeros(can.M)
-            e[pos] = 1.0
-            Binv_row = lu.lu.solve(e, trans="T")
-    else:
-        Binv_row = np.asarray(state.Binv[pos])
+    Binv_row = None
+    if handle.binv_stale:
+        # a lazy inverse: the one row (B⁻ᵀ e_pos), not the dense B⁻¹; the
+        # handle's inverse stays lazy
+        Binv = certificate.check(can, basis, state.vstat, handle.opts, row=pos).Binv
+        Binv_row = None if Binv is None else Binv[0]
+    if Binv_row is None:  # a materialized inverse, or the identity fallback
+        Binv_row = np.asarray(handle.state.Binv[pos])
     alpha = Binv_row @ can.A
     vstat = np.asarray(state.vstat)
 

@@ -22,9 +22,10 @@ factors its basis once, here:
 * `basis_plain` — the plain torch version (`torch.linalg.lu_factor_ex`,
   `lu_solve`), for the CPU and for the comparison on the card.
 * `certificate` — the wrapper's packed result copied to the host once and
-  unpacked into a `Certificate`: what the driver's host code computed
-  (x_B, y, d, x, obj, the two feasibility flags, `singular`, B⁻¹ or the
-  row of it that a Gomory cut reads).
+  unpacked into a `Certificate`, the type that the host's check
+  (`engine/certificate.py`) fills too: x_B, y, d, x, obj, the two
+  feasibility flags, `singular`, B⁻¹ or the row of it that a Gomory cut
+  reads.
 
 Semantics are the host code's: x_N from vstat (AT_LOWER and FIXED at lo,
 AT_UPPER at hi, BASIC and FREE at 0), rhs = b − A·x_N, B·x_B = rhs,

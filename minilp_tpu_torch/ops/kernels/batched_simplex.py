@@ -26,9 +26,9 @@ Three layers, as in the JAX package:
   f64 optimality certificate follow from one f64 LU per LP:
   `solve_batch_megakernel`, the batch entry point, certifies on the same
   device (`certify.py`'s kernel, one device-to-host copy of the results);
-  the driver's single-LP route checks its LP on the host (`verify_rows_f64`,
-  `_verify_f64`) on a CPU solve, and with the basis kernel (`basis_f64.py`)
-  on a card solve.
+  the driver's single-LP route checks its basis through
+  `engine/certificate.py`.  `_verify_f64` is the JAX package's host check,
+  which the tests hold the certificates to.
 
 The iterate is f32 (matmuls in full f32: the plain version expects
 `torch.backends.cuda.matmul.allow_tf32` to be False, PyTorch's default).
@@ -502,27 +502,14 @@ def solve_batch_megakernel(A, b, c, lo, hi, *, device, **kernel_kwargs) -> Batch
     return BatchResult(*certify.host_fields(certify.certify_out(out, *data).cpu().numpy(), m, n))
 
 
-def verify_rows_f64(rows, A, b, c, lo, hi) -> BatchResult:
-    """The host's exact f64 check (`_verify_f64`) of K1's or K3's output rows
-    (host (B, m + n + 2) int32, ``[basis | vstat | status | niter]``)
-    against the host batch: the certificate of the single-LP routes."""
-    A = np.asarray(A)
-    B, m, n = A.shape
-    host = np.asarray(rows).reshape(B, m + n + 2)
-    basis, vstat = host[:, :m], host[:, m:m + n]
-    status, niter = host[:, m + n], host[:, m + n + 1]
-    obj, verified, x = _verify_f64(A, b, c, lo, hi, basis, vstat, status)
-    return BatchResult(basis=basis, vstat=vstat, status=status, niter=niter,
-                       obj=obj, verified=verified, x=x)
-
-
 def _verify_f64(A, b, c, lo, hi, basis, vstat, status):
     """Exact f64 vertex + optimality certificate from the f32 bases.
 
     Runs on the HOST in numpy: the basis is combinatorial, so the exact vertex
     is one batched f64 LU solve.  (Unchanged from the JAX package.)  The
-    single-LP routes' certificate; the batch entry points certify on the
-    device (`certify.py`), whose tests hold it to this check.
+    reference check: the batch entry points certify on the device
+    (`certify.py`) and the single-LP routes through `engine/certificate.py`,
+    and the tests hold both to it.
     """
     A = np.asarray(A, dtype=np.float64)
     b = np.asarray(b, dtype=np.float64)

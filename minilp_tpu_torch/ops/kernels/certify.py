@@ -26,9 +26,9 @@ has native f64, so the port's batch entry points certify on the card:
 One recorded deviation from `_verify_f64`: an exactly singular basis (an
 exact zero pivot, or a basis that repeats a column) fails its own lane only.
 numpy's batched solve raises `LinAlgError` for the whole batch, and the host
-check then fails every lane.  The single-LP routes (the driver's K1 launch,
-K2's `solve_streaming`) certify with the basis kernel (`basis_f64.py`) on
-a card and with the host check `_verify_f64` on the CPU.
+check then fails every lane.  The single-LP routes (K1's and K2's claims,
+and every other final basis) are checked by `engine/certificate.py`: the
+basis kernel (`basis_f64.py`) on a card, the host's LU on the CPU.
 """
 
 from __future__ import annotations

@@ -43,15 +43,14 @@ Three layers, as for K1:
   then a chunk loop: each launch runs at most `chunk_iters` pivots, a
   host monitor (`SurrenderTracker`) reads the launch's packed scalars (one
   device-to-host copy per chunk) and either stops or relaunches warm from
-  the device-resident (basis, vstat, B⁻¹).  The final basis is certified in
-  f64 on the card by the basis kernel (`basis_f64.py`) for a card solve,
-  else on the host (`_verify_f64`, shared with K1).
+  the device-resident (basis, vstat, B⁻¹).  It returns K2's claim; the caller
+  checks the final basis in f64 (the driver's `engine/certificate.py`).
 
 The iterate is f32 (matmuls in full f32: the plain version expects
 `torch.backends.cuda.matmul.allow_tf32` to be False, PyTorch's default).
 Reduction orders differ between the kernel, the plain version and the TPU,
-so pivot sequences may differ; statuses, `verified` flags and certified
-objectives agree.
+so pivot sequences may differ; statuses, the f64 checks' `verified` flags
+and certified objectives agree.
 """
 
 from __future__ import annotations
@@ -64,20 +63,16 @@ import torch
 
 from ...status import Status, VarStat
 from ...utils import profiling
-from . import basis_f64, build
-from .batched_simplex import _verify_f64
+from . import build
 
 
 class StreamResult(NamedTuple):
+    """K2's claim (host numpy)."""
+
     basis: np.ndarray     # (m,) int32 — final basis
     vstat: np.ndarray     # (n,) int32 — final variable statuses
     status: np.int32      # Status of the last launch (NUMERICAL on surrender)
     niter: np.int32       # pivots over all launches
-    obj: np.float64       # exact objective (f64 recompute)
-    verified: np.bool_    # f64 optimality certificate held
-    x: np.ndarray         # (n,) f64 — exact vertex (f64 recompute)
-    #: the basis kernel's whole certificate on a card, else None
-    cert: Optional[basis_f64.Certificate] = None
 
 
 class StreamOut(NamedTuple):
@@ -768,7 +763,8 @@ def prepare_launch(
     """The inputs of K2's first launch in `solve_streaming` (its options).
 
     Host arrays A (m, n), b (m,), c/lo/hi (n,): cast to f32 for the device
-    (A transposed), kept as given for the certificate.  The identity slack
+    (A transposed), and kept as given (n padded) in the `Launch`, where a
+    caller's host check of a launch's claim reads them.  The identity slack
     block occupies columns [slack0, slack0+m) and forms the initial basis;
     `slack0=None` means the last m columns.  n is padded to a multiple of
     `tile_n` with inert FIXED columns (zero column, lo = hi = 0: FIXED is
@@ -830,13 +826,10 @@ def prepare_launch(
                   max_iter=max_iter)
 
 
-def solve_streaming(A, b, c, lo, hi, *, A_f64: Optional[torch.Tensor] = None,
-                    **options) -> StreamResult:
+def solve_streaming(A, b, c, lo, hi, **options) -> StreamResult:
     """Solve ONE canonical LP through K2 (module docstring); `options` are
-    `prepare_launch`'s.  On a card the final basis is certified by the
-    basis kernel, on A in f64 on the card (`A_f64`, the caller's copy,
-    else uploaded here), and its certificate comes back in `cert`; on the
-    CPU by the host's `_verify_f64`.
+    `prepare_launch`'s.  Returns K2's claim: its final basis, vstat, status
+    and pivots, unchecked.
 
     Each launch runs at most the chunk's pivots; the solve relaunches warm
     from the previous launch's device-resident (basis, vstat, B⁻¹) until a
@@ -871,28 +864,8 @@ def solve_streaming(A, b, c, lo, hi, *, A_f64: Optional[torch.Tensor] = None,
             break
         # relaunch warm from this chunk's device-resident state
         warm = (out.basis, out.vstat, out.Binv)
+    # from here to the `Solution`: the copies back and the caller's check
     profiling.begin("finish")
-    basis = out.basis.cpu().numpy()
-    vstat = out.vstat.cpu().numpy()
     status = np.int32(Status.NUMERICAL) if surrender else np.int32(st)
-    dev = out.basis.device
-    cert = None
-    with profiling.span("stream_verify"):
-        if dev.type == "cuda":
-            # the unpadded LP (the padding columns are inert FIXED at 0)
-            put = lambda v: torch.as_tensor(np.ascontiguousarray(v, dtype=np.float64),
-                                            device=dev)
-            with profiling.span("upload", dev):
-                inputs = (put(A) if A_f64 is None else A_f64, put(b),
-                          *(put(v[:n]) for v in (c, lo, hi)))
-            cert = basis_f64.certificate(*inputs, out.basis, out.vstat[:n], int(status))
-            obj, verified, x = cert.obj, cert.verified, cert.x
-        else:
-            obj, verified, x = (v[0] for v in _verify_f64(
-                launch.A[None], launch.b[None], launch.c[None], launch.lo[None],
-                launch.hi[None], basis[None], vstat[None], np.asarray(status)[None],
-            ))
-    return StreamResult(
-        basis=basis, vstat=vstat[:n], status=status, niter=np.int32(total_iter),
-        obj=obj, verified=verified, x=x[:n], cert=cert,
-    )
+    return StreamResult(basis=out.basis.cpu().numpy(), vstat=out.vstat[:n].cpu().numpy(),
+                        status=status, niter=np.int32(total_iter))

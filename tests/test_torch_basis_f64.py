@@ -15,11 +15,13 @@ optimum, a basic column swapped for a nonbasic one, a non-optimal basis
 (the host simplex cut short), a nonbasic variable at an infinite bound, a
 repeated column and an exact zero pivot.
 
-The card route's driver wiring (`driver._certify_on_device`) is driven with
-CPU tensors: `_state_from_certified_basis`, `certify` and `ensure_binv` on
-that route give the host route's state, one certificate serving them all.
-The CUDA kernel is held against `basis_plain` on the card by
-`test_torch_cuda.py` and `chip_smoke.py`.
+The port's own check (`engine/certificate.py`) is held to `basis_plain`
+on both of its sides: its host code field by field, and its card route
+(`certificate._certify_on_device`) driven with CPU tensors, where
+`_state_from_certified_basis`, `certify` and `ensure_binv` give the host
+route's state, one certificate serving them all.  The CUDA kernel is held
+against `basis_plain` on the card by `test_torch_cuda.py` and
+`chip_smoke.py`.
 """
 
 import contextlib
@@ -37,7 +39,8 @@ from minilp_tpu.engine import hostlp as ref_hostlp
 from minilp_tpu.ops.kernels import batched_simplex as ref_bs
 from minilp_tpu.utils.synth import netlib_shaped_problem
 from minilp_tpu_torch import SolverOptions
-from minilp_tpu_torch.engine import driver
+from minilp_tpu_torch.canonical import CanonicalLP
+from minilp_tpu_torch.engine import certificate, driver
 from minilp_tpu_torch.ops.kernels import basis_f64
 from minilp_tpu_torch.status import Status, VarStat
 
@@ -104,6 +107,12 @@ def _case(shape, name):
 def _copy(can):
     return dataclasses.replace(can, A=can.A.copy(), b=can.b.copy(), c=can.c.copy(),
                                lo=can.lo.copy(), hi=can.hi.copy())
+
+
+def _port_form(can):
+    """A copy of the reference's canonical form as the port's `CanonicalLP`."""
+    fields = {f.name: getattr(can, f.name) for f in dataclasses.fields(CanonicalLP) if f.init}
+    return _copy(CanonicalLP(**fields))
 
 
 def _plain(can, basis, vstat, status, **kw):
@@ -220,6 +229,45 @@ def test_plain_row_of_binv(shape, name):
     assert _close(got.Binv[0], handle._state.Binv[pos], 1e-9)
 
 
+#: the host check's cases against `basis_plain`: (shape, case, keywords)
+HOST_CASES = {
+    "optimal_48x96": ("48x96", "optimal", {}),
+    "optimal_superlu": ("1024x1400", "optimal", {}),
+    "swapped_48x96": ("48x96", "swapped", {}),
+    "singular_zero_pivot": ("48x96", "zero_pivot", {}),
+    "singular_repeated_superlu": ("1024x1400", "repeated", {}),
+    "inverse_48x96": ("48x96", "optimal", {"inverse": True}),
+    "inverse_superlu": ("1024x1400", "swapped", {"inverse": True}),
+    "row_48x96": ("48x96", "swapped", {"row": 16}),
+    "row_superlu": ("1024x1400", "optimal", {"row": 341}),
+}
+
+
+@pytest.mark.parametrize("case", list(HOST_CASES))
+def test_host_check_matches_plain(case):
+    """`certificate.check` on a CPU solve (numpy's LU below 1024 padded
+    rows, SuperLU from there) fills the same `Certificate` fields as the
+    basis kernel's plain version: the flags exactly, the values within the
+    tolerances above, B⁻¹ (or its one row) within 1e-9."""
+    shape, name, kw = HOST_CASES[case]
+    _prob, can, basis, vstat, status = _case(shape, name)
+    can = _port_form(can)
+    assert (can.M >= certificate.SPARSE_HOST_M) == (shape == "1024x1400")
+    want = _plain(can, basis, vstat, status, **kw)
+    got = certificate.check(can, basis, vstat, SolverOptions(device="cpu"), **kw)
+    for flag in ("pfeas", "dfeas", "singular", "verified"):
+        assert getattr(got, flag) == getattr(want, flag), flag
+    assert got.singular == (name in ("zero_pivot", "repeated"))
+    assert _close(got.obj, want.obj, REL_OBJ[shape]), (got.obj, want.obj)
+    for field in ("x", "d", "xB", "y"):
+        assert _close(getattr(got, field), getattr(want, field), REL_X), field
+    if want.Binv is None:
+        assert got.Binv is None
+    else:
+        assert got.Binv.shape == want.Binv.shape and got.Binv.flags.c_contiguous
+        assert _close(got.Binv, want.Binv, 1e-9)
+
+
 def test_wrapper_rejects_bad_inputs():
     _prob, can, basis, vstat, _status = _case("48x96", "optimal")
     t = lambda v, dt: torch.as_tensor(np.ascontiguousarray(v, dtype=dt))
@@ -247,8 +295,9 @@ def test_grid_blocks():
 
 @pytest.fixture
 def card_route(monkeypatch):
-    """The driver's card route (`_certify_on_device`) on CPU tensors; counts
-    the plain version's calls (the launches it stands for)."""
+    """The check's card route (`certificate._certify_on_device`) on CPU
+    tensors; counts the plain version's calls (the launches it stands
+    for)."""
     calls = []
     plain = basis_f64.basis_plain
 
@@ -256,19 +305,19 @@ def card_route(monkeypatch):
         calls.append("row" if kw.get("row") is not None else kw.get("inverse", False))
         return plain(*args, **kw)
 
-    monkeypatch.setattr(driver, "_certify_on_device", lambda opts: True)
+    monkeypatch.setattr(certificate, "_certify_on_device", lambda opts: True)
     monkeypatch.setattr(basis_f64, "basis_plain", counted)
     return calls
 
 
 @contextlib.contextmanager
 def _host_route():
-    saved = driver._certify_on_device
-    driver._certify_on_device = lambda opts: False
+    saved = certificate._certify_on_device
+    certificate._certify_on_device = lambda opts: False
     try:
         yield
     finally:
-        driver._certify_on_device = saved
+        certificate._certify_on_device = saved
 
 
 def _port_solve(shape, **options):
@@ -282,8 +331,9 @@ def _port_solve(shape, **options):
                          ids=["default", "k1", "k2"])
 def test_card_route_wiring_gives_the_host_state(card_route, options):
     """A cold solve on the card route factors its basis once (the route's
-    check serves the state and `certify`), then `ensure_binv` once more;
-    the state, certificate and B⁻¹ are the host route's."""
+    check of K1's or K2's claim serves the state and `certify`), then
+    `ensure_binv` once more; the state, certificate and B⁻¹ are the host
+    route's."""
     with _host_route():
         host = _port_solve("48x96", **options)._engine
         host_binv = np.asarray(host.state.Binv)
@@ -334,7 +384,7 @@ def test_card_route_exact_inverse(card_route):
     the card route: the basis kernel's B⁻¹, LinAlgError on a singular
     basis, as numpy's inverse on the host."""
     _prob, can, basis, vstat, _status = _case("48x96", "optimal")
-    can, opts = _copy(can), SolverOptions(device="cpu")
+    can, opts = _port_form(can), SolverOptions(device="cpu")
     binv = driver._exact_inverse(can, basis, vstat, opts)
     assert np.abs(binv - np.linalg.inv(can.A[:, basis])).max() <= 1e-9
     with pytest.raises(np.linalg.LinAlgError):
@@ -346,23 +396,23 @@ def test_card_route_certificate_follows_edits(card_route):
     vstat) of the same LP; an edit of b, c, lo or hi in place makes the next
     call launch again, with nothing to drop by hand."""
     _prob, can, basis, vstat, _status = _case("48x96", "optimal")
-    can, opts = _copy(can), SolverOptions(device="cpu")
-    first = driver._basis_certificate(can, basis, vstat, opts)
-    assert driver._basis_certificate(can, basis, vstat, opts) is first
-    assert driver._basis_certificate(can, basis, vstat, opts, tol=1e-6) is not first
+    can, opts = _port_form(can), SolverOptions(device="cpu")
+    first = certificate.check(can, basis, vstat, opts)
+    assert certificate.check(can, basis, vstat, opts) is first
+    assert certificate.check(can, basis, vstat, opts, tol=1e-6) is not first
     assert card_route == [False, False]
     for name in ("b", "c", "lo", "hi"):
         v = getattr(can, name)
         k = int(np.flatnonzero(np.isfinite(v))[0])
         v[k] += 0.5
-        edited = driver._basis_certificate(can, basis, vstat, opts)
+        edited = certificate.check(can, basis, vstat, opts)
         assert edited is not first, name
         v[k] -= 0.5
     assert card_route == [False] * 6
     # what was asked for: a certificate without B⁻¹ does not serve `inverse`
-    with_inverse = driver._basis_certificate(can, basis, vstat, opts, inverse=True)
+    with_inverse = certificate.check(can, basis, vstat, opts, inverse=True)
     assert with_inverse.Binv is not None and card_route[-1] is True
-    assert driver._basis_certificate(can, basis, vstat, opts) is with_inverse
+    assert certificate.check(can, basis, vstat, opts) is with_inverse
 
 
 def test_card_route_handle_keeps_copies(card_route):
@@ -371,7 +421,8 @@ def test_card_route_handle_keeps_copies(card_route):
     leaves the certificate as it was."""
     h = _port_solve("48x96", use_megakernel="always")._engine
     h.ensure_binv()
-    kept = h.can._basis_cert[1]
+    st = h._state
+    kept = certificate.check(h.can, st.basis, st.vstat, h.opts, inverse=True)
     assert kept.Binv is not None
     assert not np.shares_memory(h._state.Binv, kept.Binv)
     assert not np.shares_memory(h._x_full(), kept.x)
@@ -405,28 +456,3 @@ def test_card_route_gomory_row(card_route):
     assert calls[0] == "row" and calls.count("row") == 1
     assert _close(row_c, row_h, 1e-9) and _close(rhs_c, rhs_h, 1e-9)
     assert _close(obj_c, obj_h, 1e-9)
-
-
-def test_card_route_keeps_k2s_certificate(card_route, monkeypatch):
-    """K2's own check of its final basis on a card (`StreamResult.cert`, on
-    the driver's f64 copy of A) serves the state and `certify`: one
-    factorization for the cold solve.  On the CPU K2 checks on the host, so
-    the card's check is stood in by the basis kernel's plain version on the
-    same inputs."""
-    from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
-
-    real = ss.solve_streaming
-
-    def checked_as_on_a_card(A, b, c, lo, hi, *, A_f64=None, **options):
-        res = real(A, b, c, lo, hi, **options)
-        assert isinstance(A_f64, torch.Tensor) and np.array_equal(A_f64.numpy(), A)
-        t = lambda v, dt: torch.as_tensor(np.ascontiguousarray(v, dtype=dt))
-        cert = basis_f64.certificate(A_f64, *(t(v, np.float64) for v in (b, c, lo, hi)),
-                                     t(res.basis, np.int32), t(res.vstat, np.int32),
-                                     int(res.status))
-        return res._replace(cert=cert)
-
-    monkeypatch.setattr(ss, "solve_streaming", checked_as_on_a_card)
-    sol = _port_solve("48x96", use_streaming="always", use_megakernel="never")
-    assert sol._engine.certified
-    assert card_route == [False]

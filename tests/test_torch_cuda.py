@@ -18,7 +18,7 @@ import torch
 from minilp_tpu_torch import (ComparisonOp, Infeasible, LinearExpr, OptimizationDirection,
                               Problem, SolverOptions, Variable)
 from minilp_tpu_torch.canonical import canonicalize
-from minilp_tpu_torch.engine import driver, hostlp
+from minilp_tpu_torch.engine import certificate, driver, hostlp
 from minilp_tpu_torch.ops.kernels import basis_f64
 from minilp_tpu_torch.ops.kernels import batched_simplex as bs
 from minilp_tpu_torch.ops.kernels import certify
@@ -26,6 +26,7 @@ from minilp_tpu_torch.ops.kernels import packed_simplex as ps
 from minilp_tpu_torch.ops.kernels import streaming_simplex as ss
 from minilp_tpu_torch.parallel import batched, scheduling
 from minilp_tpu_torch.presolve import presolve_problem
+from minilp_tpu_torch.status import Status
 from minilp_tpu_torch.utils import profiling
 from minilp_tpu_torch.utils.synth import (degenerate_problem, netlib_shaped_problem,
                                           network_flow_problem,
@@ -236,7 +237,9 @@ def test_k2_kernel_matches_plain(cuda, case):
 def test_k2_kernel_matches_plain_warm_start(cuda):
     A, b, c, lo, hi = [x[0] for x in random_batch(21, 1, 16, 32)]
     cold = ss.solve_streaming(A, b, c, lo, hi, device=cuda, tile_n=16)
-    assert cold.verified
+    _obj, verified, _x = bs._verify_f64(*(np.asarray(v)[None] for v in (
+        A, b, c, lo, hi, cold.basis, cold.vstat)), np.array([cold.status]))
+    assert verified[0]
     hi2 = hi.copy()
     hi2[:32] = np.minimum(hi2[:32], 0.4)
     warm = (cold.basis, cold.vstat, np.linalg.inv(A[:, cold.basis]))
@@ -341,11 +344,12 @@ def test_k2_wide_matches_one_block(cuda, case):
     hi = can.hi
     if case == "warm":
         cold = ss.solve_streaming(can.A, can.b, can.c, can.lo, can.hi, **options)
-        assert cold.verified
+        checked = certificate.check(can, cold.basis, cold.vstat, SolverOptions())
+        assert int(cold.status) == int(Status.OPTIMAL) and checked.verified
         struct = [int(j) for j in cold.basis if j < can.nv]
-        j = max(struct, key=lambda k: cold.x[k] - can.lo[k])
+        j = max(struct, key=lambda k: checked.x[k] - can.lo[k])
         hi = can.hi.copy()
-        hi[j] = 0.5 * (can.lo[j] + cold.x[j])
+        hi[j] = 0.5 * (can.lo[j] + checked.x[j])
         options["warm_state"] = (cold.basis, cold.vstat, np.linalg.inv(can.A[:, cold.basis]))
     launch = ss.prepare_launch(can.A, can.b, can.c, can.lo, hi, **options)
     m, n = launch.A.shape
@@ -393,6 +397,16 @@ def test_main_path_goes_through_k2(cuda, tmp_path, monkeypatch):
 
 # ---- K3, the packed kernel ----------------------------------------------------
 
+def _verify_rows(rows, A, b, c, lo, hi) -> bs.BatchResult:
+    """The host's exact f64 check (`_verify_f64`) of kernel output rows
+    (B, m + n + 2), ``[basis | vstat | status | niter]``, on the host batch."""
+    B, m, n = np.shape(A)
+    rows = np.asarray(rows).reshape(B, m + n + 2)
+    basis, vstat, status = rows[:, :m], rows[:, m:m + n], rows[:, m + n]
+    obj, verified, x = bs._verify_f64(A, b, c, lo, hi, basis, vstat, status)
+    return bs.BatchResult(basis, vstat, status, rows[:, m + n + 1], obj, verified, x)
+
+
 def _k3_kernel_and_plain(cuda, A, b, c, lo, hi, slack0, pack):
     """K3 twice and its plain version on the same device inputs."""
     args = ps.upload_packed(A, b, c, lo, hi, pack=pack, device=cuda)
@@ -403,7 +417,7 @@ def _k3_kernel_and_plain(cuda, A, b, c, lo, hi, slack0, pack):
     torch.cuda.synchronize()
     assert ps.launches == before + 2  # the plain version is no launch
     assert torch.equal(outs[0], outs[1])  # no read of uninitialised scratch
-    got, want = (bs.verify_rows_f64(o.cpu().numpy(), A, b, c, lo, hi)
+    got, want = (_verify_rows(o.cpu().numpy(), A, b, c, lo, hi)
                  for o in (outs[0], outs[2]))
     np.testing.assert_array_equal(got.status, want.status)
     np.testing.assert_array_equal(got.verified, want.verified)
@@ -743,16 +757,17 @@ def test_card_solve_certifies_its_basis_on_the_card(cuda, monkeypatch, options):
     def host_check(*args, **kw):
         raise AssertionError("a card solve factored its final basis on the host")
 
-    for mod, name in ((bs, "_verify_f64"), (ss, "_verify_f64"), (hostlp, "factorize_basis")):
+    cpu = netlib_shaped_problem(70, 150, 0.08, seed=2)
+    cpu.options = SolverOptions(device="cpu")
+    want = cpu.solve().objective()
+    for mod, name in ((bs, "_verify_f64"), (certificate, "_on_host"),
+                      (hostlp, "factorize_basis")):
         monkeypatch.setattr(mod, name, host_check)
     prob = netlib_shaped_problem(70, 150, 0.08, seed=2)
     prob.options = SolverOptions(**options)
-    cpu = netlib_shaped_problem(70, 150, 0.08, seed=2)
-    cpu.options = SolverOptions(device="cpu")
     before = basis_f64.launches
     sol = prob.solve()
     assert sol._engine.certified and basis_f64.launches == before + 1
-    want = cpu.solve().objective()
     assert abs(sol.objective() - want) <= 1e-9 * (1.0 + abs(want))
     binv = np.asarray(sol._engine.state.Binv)
     assert basis_f64.launches == before + 2
@@ -770,6 +785,7 @@ def test_card_resolves_certify_on_the_card(cuda, monkeypatch):
 
     monkeypatch.setattr(driver.hostlp, "factorize_basis", host_check)
     monkeypatch.setattr(bs, "_verify_f64", host_check)
+    monkeypatch.setattr(certificate, "_on_host", host_check)
     for options in ({}, {"use_megakernel": "always"}):
         prob = netlib_shaped_problem(60, 150, 0.06, seed=11)
         prob.options = SolverOptions(**options)
