@@ -17,11 +17,14 @@ failure (exit code 1; no result line is printed then):
    `bench.py` canonicalized (padded (256, 1024) and (504, 2048)) cold, and
    one warm start after a tightened bound.  Required: the same status and
    `verified` flag per LP, certified objectives within 1e-9 relative.  A
-   one-LP launch is one cooperative grid (one block per SM); on each
-   one-LP case its out rows and the bits of its final B⁻¹ must equal those
-   of the same launch on one block, while the batch of 64 runs one block
-   per LP.  `utils/k1_split.py` gives the grid's per-refresh and per-pivot
-   times at both `single_lp` shapes;
+   one-LP launch is one cooperative grid of thread-block clusters (on an
+   H100 7 clusters of 16, 112 blocks): each pivot's phases run on the
+   leader's cluster, the refresh and the recompute on the whole grid; on
+   each one-LP case its out rows and the bits of its final B⁻¹ must equal
+   those of the same launch on one block, while the batch of 64 runs one
+   block per LP.  `utils/k1_split.py` gives the grid's per-refresh and
+   per-pivot times at both `single_lp` shapes, and the leader's cluster
+   alone against the whole grid;
 3b. K2 against its plain torch version on the card, on the inputs and
    options of the main path's first K2 launch (`prepare_launch` with the
    driver's `streaming_options`): the 25fv47 shape (presolved and

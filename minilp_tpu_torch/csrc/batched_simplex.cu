@@ -33,26 +33,74 @@
 //
 // Two launch shapes.  A batch (grid = batch) runs one LP per block, as the
 // TPU kernel ran one LP per program.  A launch of ONE LP runs as a
-// cooperative grid of G blocks with the machinery of simplex_grid.cuh: block
-// 0, the leader, runs the loop and keeps everything that is O(m) or O(n)
-// with a block-uniform result (the refresh decision, sigma and the
+// cooperative grid of G blocks in thread-block clusters of C (16 where the
+// card allows that size, else 8), with the machinery of simplex_grid.cuh:
+// block 0, the leader, runs the loop and keeps everything that is O(m) or
+// O(n) with a block-uniform result (the refresh decision, sigma and the
 // infeasibility, pricing, the ratio test, the bound flip, the bookkeeping,
-// the status); blocks 1..G-1 sleep on the command word and join the m^2- and
-// m^3-class phases it posts: the Newton refresh and recompute, the phase-1
-// duals, FTRAN, and a pivot's rank-1 update of B^-1 with the phase-2 pivot
-// row.  Each phase hands out 64 x 64 GEMM tiles, matvec rows (one warp
-// each), column sums (one thread each) or elements by rank, and every output
-// keeps the one fixed-order sum it has on one block, so the results do not
-// depend on G, and a batch runs the same code with (rank, size) = (0, 1).
-// What is left on the grid: a column sum is one thread's in-order chain, so
-// a sum over n columns has n / 32 warps to spread (64 SMs at n = 2048, 16 for
-// the phase-1 y = sigma B^-1 at m = 504), and the refresh's 64 x 64 tiles
-// number 64 at m = 504, so half the SMs wait through each product.
+// the status), and posts the m^2- and m^3-class phases.  A pivot's phases
+// (the phase-1 duals, FTRAN, and the rank-1 update of B^-1 with the phase-2
+// pivot row) go to the leader's cluster, blocks 0..C-1, which meet at the
+// cluster's hardware barrier: the leader puts the command and the pivot's
+// scalars in its shared memory and arrives, the workers read them over
+// distributed shared memory, and each phase ends on that barrier.  The
+// Newton refresh and the recompute, once a refresh period, go to the whole
+// grid, the blocks outside the cluster sleeping on the command word in
+// global memory between them.  Each phase hands out 64 x 64 GEMM tiles,
+// rows (one warp each), column sums (one thread each) or elements by rank,
+// and every output keeps the one fixed-order sum it has on one block,
+// so the results depend on neither G nor C, and a batch runs the same code
+// with (rank, size) = (0, 1).  At the main path's shapes a pivot's phases
+// are latency, not work: a column sum is one thread's in-order chain, so a
+// sum over n columns has n / 32 warps to spread (64 at n = 2048, four a
+// block of a cluster of 16), FTRAN's m rows are m warps, and the rank-1
+// update is m^2 elements from L2, all of which C blocks hold; the grid's
+// barrier and command word cost more than the rest of the blocks give.
+// The refresh wants the grid: its 64 x 64 tiles number 36 at m = 384 and
+// 64 at m = 504, more than one cluster holds at once.
 
 #include "simplex_common.cuh"
 #include "simplex_grid.cuh"
 
 namespace {
+
+#ifdef K1_CLOCKS
+// Built with -DK1_CLOCKS, the leader sums clock64() cycles per part of a loop
+// iteration (`batched_simplex_clocks`), apart for phase 1 and phase 2: its
+// serial steps (the feasibility count and refresh decision, sigma and the
+// infeasibility, pricing, the ratio test, the bookkeeping: the a_q gather,
+// the flip or the pivot's scalars and row of B^-1, the basis, the status),
+// the refresh whole, and each posted phase as its post, its work and the
+// barriers it waits in.  The normal build carries no clocks.
+enum Part {
+  C_FEAS, C_REFRESH, C_SIGMA, C_DUALS_POST, C_DUALS_WORK, C_DUALS_SYNC, C_PRICE,
+  C_FTRAN_POST, C_FTRAN_WORK, C_FTRAN_SYNC, C_RATIO, C_SWEEPS_POST, C_SWEEPS_WORK,
+  C_SWEEPS_SYNC, C_BOOK, kParts
+};
+// phase 1's parts and iterations, phase 2's, then the start and the exit
+constexpr int kClockWords = 2 * (kParts + 1) + 1;
+__device__ unsigned long long g_clocks[kClockWords];
+// thread 0 of the leader: the part that ends here, in the iteration's phase
+#define K1_TICK(part)                         \
+  if (tid == 0) {                             \
+    const long long now_ = clock64();         \
+    sm.clk[ph][part] += now_ - clk_last;      \
+    clk_last = now_;                          \
+  }
+// a posted phase ends here: its time less the barriers it waited in, then
+// those barriers (summed by Grid::sync into sm.clk_sync)
+#define K1_PHASE(work, sync)                                   \
+  if (tid == 0) {                                              \
+    const long long now_ = clock64();                          \
+    sm.clk[ph][work] += now_ - clk_last - sm.clk_sync;         \
+    sm.clk[ph][sync] += sm.clk_sync;                           \
+    sm.clk_sync = 0;                                           \
+    clk_last = now_;                                           \
+  }
+#else
+#define K1_TICK(part)
+#define K1_PHASE(work, sync)
+#endif
 
 // Newton-refresh GEMM tiling: 64 x 64 output tile, 16-deep k slabs; each of
 // the 512 threads owns a 2 x 4 patch of the tile.
@@ -64,8 +112,16 @@ constexpr unsigned kRecompute = 1, kRefresh = 2, kDuals = 3, kFtran = 4, kPivot 
 
 struct Params {
   int m, n, slack0, max_iter, refactor_period, bland_after, warm;
-  int wide;  // one LP over the launch's grid (else one LP per block)
+  int wide;     // one LP over the launch's grid (else one LP per block)
+  int cluster;  // blocks of a thread-block cluster of the launch (1: none)
   float feas_tol, opt_tol, pivot_tol;
+};
+
+// What a pivot's sweeps need besides the state: the leader's block-uniform
+// scalars, which the cluster's workers read from the leader's shared memory.
+struct Pivot {
+  int q, r, lv, lstat, p1;
+  float wr, t, s, x_enter, rd, gq;
 };
 
 struct Smem {
@@ -73,17 +129,35 @@ struct Smem {
   int red_i[kWarps];
   float As[kTileK][kTile + 1];  // P tile, k-major; +1 breaks store conflicts
   alignas(16) float Bs[kTileK][kTile];
-  int cmd;  // a worker's current command
+  int cmd;   // a worker's current command; the leader's, to its cluster
+  Pivot piv; // the leader's pivot scalars, to its cluster
+#ifdef K1_CLOCKS
+  long long clk[2][kParts];  // the leader's cycles per part, by phase
+  long long clk_sync;        // the barriers of the phase it runs
+#endif
 };
 
-// This block's share of its LP's work: (rank, size) = (blockIdx.x, G) over
-// the grid of a one-LP launch, (0, 1) for a block of a batch.
+// This block's share of a phase of its LP: (rank, size) = (blockIdx.x, G)
+// over the grid of a one-LP launch, (rank in the cluster, C) over the
+// leader's cluster of C blocks (`cluster`: its steps meet at the cluster's
+// barrier), (0, 1) for a block of a batch.
 struct Grid {
   Ctl* ctl;
   int rank, size;
+  bool cluster = false;
+  long long* clk = nullptr;  // K1_CLOCKS: the leader's sum of its barrier waits
   __device__ size_t gtid() const { return (size_t)rank * kThreads + threadIdx.x; }
   __device__ size_t threads() const { return (size_t)size * kThreads; }
-  __device__ void sync() const { grid_sync(ctl, size); }
+  __device__ void sync() const {
+#ifdef K1_CLOCKS
+    const long long t0 = clock64();
+#endif
+    if (cluster) cluster_sync();
+    else grid_sync(ctl, size);
+#ifdef K1_CLOCKS
+    if (clk && threadIdx.x == 0) *clk += clock64() - t0;
+#endif
+  }
 };
 
 // C = base + sgn * P Q for m x m row-major matrices (base == nullptr: the
@@ -144,6 +218,8 @@ __device__ void gemm(const float* P, const float* Q, float* C, const float* base
 // each thread keeps kAhead rows of loads in flight ahead of its fma chain, as
 // one thread's column is too little work to hide L2 latency otherwise.
 constexpr int kAhead = 32;
+// columns of a row of B^-1 a lane of the rank-1 update keeps in flight
+constexpr int kRow = 16;
 template <typename F>
 __device__ void colsums_spread(const float* y, const float* M, int rows, int cols, F f,
                                const Grid& g) {
@@ -177,15 +253,9 @@ struct Lp {
   float *d, *wts, *dc;                     // n
 };
 
-// What a pivot's sweeps need besides the state: the leader's block-uniform
-// scalars, which reach the workers through global memory.
-struct Pivot {
-  int q, r, lv, lstat, p1;
-  float wr, t, s, x_enter, rd, gq;
-};
-
-// ---- the grid phases -------------------------------------------------------
-// Each is run by every block that shares the LP and ends on a grid barrier.
+// ---- the posted phases -----------------------------------------------------
+// Each is run by every block of its Grid (the whole grid, or the leader's
+// cluster) and ends on that Grid's barrier.
 // Not inlined: called, they are register-allocated on their own and leave the
 // leader's loop as it was (inlined grid phases made K2's loop spill).
 
@@ -248,12 +318,47 @@ __device__ __noinline__ void ftran(const Lp& L, int m, const Grid& g) {
 // read here and written only after the closing barrier.
 __device__ __noinline__ void pivot_sweeps(const Lp& L, const Pivot& v, int m, int n,
                                           const Grid& g) {
-  const size_t mm = (size_t)m * m;
   const int q = v.q, r = v.r, lv = v.lv, lstat = v.lstat;
   const float wr = v.wr, t = v.t, s = v.s, x_enter = v.x_enter, rd = v.rd, gq = v.gq;
-  for (size_t e = g.gtid(); e < mm; e += g.threads()) {
+  // On one block (a batch's LP) a flat loop, a few elements a thread at a
+  // batch's m = 32, where rows would leave most lanes idle.  Spread over
+  // blocks: a warp a row, its lanes along the row, kRow columns a lane in
+  // flight.  A store to the row may alias pr as far as the compiler knows,
+  // so the flat loop waits out a load before each store: on a cluster's few
+  // blocks that is a round trip to L2 for every 32 columns.  In phase 2 the
+  // pivot row's column sums take warps 0..busy-1 of each block
+  // (colsums_spread's chunks) and the update the others, so that the two
+  // run side by side.
+  const size_t mm = g.size == 1 ? (size_t)m * m : 0;
+  for (size_t e = threadIdx.x; e < mm; e += kThreads) {
     const int i = (int)(e / m);
     L.Binv[e] = L.Binv[e] - (L.w[i] - (i == r ? 1.f : 0.f)) * L.pr[e % m];
+  }
+  const int lane = threadIdx.x & 31;
+  const int busy = v.p1 ? 0 : min((n + 32 * g.size - 1) / (32 * g.size), kWarps / 2);
+  const int uw = kWarps - busy, warp = g.size == 1 ? -1 : (int)(threadIdx.x >> 5) - busy;
+  for (int j0 = 0; j0 < m && warp >= 0; j0 += 32 * kRow) {
+    float pv[kRow];
+#pragma unroll
+    for (int u = 0; u < kRow; ++u) {
+      const int j = j0 + 32 * u + lane;
+      pv[u] = j < m ? L.pr[j] : 0.f;
+    }
+    for (int i = g.rank * uw + warp; i < m; i += g.size * uw) {
+      const float f = L.w[i] - (i == r ? 1.f : 0.f);
+      float* row = L.Binv + (size_t)i * m;
+      float x[kRow];
+#pragma unroll
+      for (int u = 0; u < kRow; ++u) {
+        const int j = j0 + 32 * u + lane;
+        x[u] = j < m ? row[j] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kRow; ++u) {
+        const int j = j0 + 32 * u + lane;
+        if (j < m) row[j] = x[u] - f * pv[u];
+      }
+    }
   }
   for (size_t i = g.gtid(); i < (size_t)m; i += g.threads())
     L.xB[i] = (int)i == r ? x_enter : L.xB[i] + t * (-s * L.w[i]);
@@ -286,10 +391,13 @@ simplex_kernel(const float* __restrict__ A_all, const float* __restrict__ b_all,
                int* out_all, float* ws_all, size_t ws_stride, Ctl* ctl, Params p) {
   __shared__ Smem sm;
   const int m = p.m, n = p.n, tid = threadIdx.x;
+  // the grid's share (the refresh and the recompute), and the leader's
+  // cluster's (the per-pivot phases: C = 1 without a cluster)
+  const int C = p.cluster;
   const Grid g{ctl, p.wide ? (int)blockIdx.x : 0, p.wide ? (int)gridDim.x : 1};
+  const Grid gc{ctl, g.rank % C, C, C > 1};
   const size_t lp = p.wide ? 0 : blockIdx.x, mm = (size_t)m * m;
   const float ftol = p.feas_tol;
-  Pivot* piv = reinterpret_cast<Pivot*>(ctl + 1);
 
   Lp L;
   L.A = A_all + lp * m * n;
@@ -317,22 +425,68 @@ simplex_kernel(const float* __restrict__ A_all, const float* __restrict__ b_all,
   L.wts = L.d + n;
   L.dc = L.wts + n;
 
-  if (g.rank != 0) {  // a worker of a one-LP grid: its share of each phase
-    // 2-3 posts per pivot, each phase a few µs: poll every 250 ns
-    worker_loop(ctl, sm.cmd, 250, [&](int cmd) {
+  if (g.rank >= C) {  // a worker outside the leader's cluster: the grid phases
+    // a post every refresh period (about 1 ms at the main path's shapes)
+    worker_loop(ctl, sm.cmd, 1000, [&](int cmd) {
       if (cmd == (int)kRecompute) recompute(L, m, n, g);
-      else if (cmd == (int)kRefresh) refresh(L, m, n, sm, g);
-      else if (cmd == (int)kDuals) phase1_duals(L, m, n, g);
-      else if (cmd == (int)kFtran) ftran(L, m, g);
-      else {
-        const Pivot v = *piv;
-        pivot_sweeps(L, v, m, n, g);
-      }
+      else refresh(L, m, n, sm, g);
     });
     return;
   }
-  // the LP's leader (block 0 of the grid, or the batch's block of this LP)
+  if (g.rank != 0) {  // a worker of the leader's cluster: every phase
+    const int* cmd_at = cluster_map(&sm.cmd, 0);
+    const Pivot* piv_at = cluster_map(&sm.piv, 0);
+    for (;;) {
+      cluster_sync();  // the leader's post
+      // thread 0 reads the leader's shared memory once for the block (every
+      // thread's own reads would queue at the leader's SM), the scalars with
+      // the command, as the leader writes them only before a kPivot post
+      if (tid == 0) {
+        sm.cmd = *cmd_at;
+        sm.piv = *piv_at;
+      }
+      __syncthreads();
+      const int cmd = sm.cmd;
+      if (cmd == (int)kExit) break;
+      if (cmd == (int)kRecompute) recompute(L, m, n, g);
+      else if (cmd == (int)kRefresh) refresh(L, m, n, sm, g);
+      else if (cmd == (int)kDuals) phase1_duals(L, m, n, gc);
+      else if (cmd == (int)kFtran) ftran(L, m, gc);
+      else pivot_sweeps(L, sm.piv, m, n, gc);
+    }
+    cluster_sync();  // the leader's shared memory outlives every read of it
+    return;
+  }
+  // the LP's leader (block 0 of the grid, or the batch's block of this LP).
+  // A post hands a phase over: the command (and a pivot's scalars) in its
+  // shared memory for its cluster, whose barrier publishes them with the
+  // leader's writes; a grid phase also goes to the blocks outside the
+  // cluster through the global epoch, which counts only those posts.
   unsigned epoch = 0;
+  const int outside = g.size > C ? g.size : 1;  // 1: no block outside the cluster
+  auto post_cluster = [&](unsigned cmd) {
+    if (C == 1) {
+      __syncthreads();
+      return;
+    }
+    if (tid == 0) sm.cmd = (int)cmd;
+    cluster_sync();
+  };
+  auto post_grid = [&](unsigned cmd) {
+    post(ctl, epoch, cmd, outside);
+    post_cluster(cmd);
+  };
+#ifdef K1_CLOCKS
+  const Grid gp{ctl, gc.rank, gc.size, gc.cluster, &sm.clk_sync};  // clocked
+  int ph = 0;
+  long long clk_last = clock64(), clk_start = 0;
+  if (tid == 0) {
+    for (int k = 0; k < 2 * kParts; ++k) sm.clk[k / kParts][k % kParts] = 0;
+    sm.clk_sync = 0;
+  }
+#else
+  const Grid& gp = gc;
+#endif
 
   // ---- start: warm state handed in, or the slack basis with B^-1 = I -------
   if (p.warm) {
@@ -361,7 +515,7 @@ simplex_kernel(const float* __restrict__ A_all, const float* __restrict__ b_all,
     L.cB[i] = L.c[k];
   }
   for (int j = tid; j < n; j += kThreads) L.wts[j] = 1.f;  // Devex weights
-  post(ctl, epoch, kRecompute, g.size);
+  post_grid(kRecompute);
   recompute(L, m, n, g);
 
   // Scalars of the loop carry live in registers, identical in every thread
@@ -372,6 +526,14 @@ simplex_kernel(const float* __restrict__ A_all, const float* __restrict__ b_all,
   int status = RUNNING, niter = 0, phase = 1, noimp = 0, force = 0;
   int fresh = p.warm ? 0 : 1;
   float best = INFINITY;
+#ifdef K1_CLOCKS
+  if (tid == 0) {
+    const long long now_ = clock64();
+    clk_start += now_ - clk_last;
+    clk_last = now_;
+  }
+  unsigned long long iters[2] = {0, 0};
+#endif
 
   while (status == RUNNING && niter < p.max_iter) {
     // ---- refresh decision (transition, periodic, or exit-check) ------------
@@ -383,11 +545,16 @@ simplex_kernel(const float* __restrict__ A_all, const float* __restrict__ b_all,
     const bool feasible = block_sum_int(nviol, sm) == 0;
     const bool transition = phase == 1 && feasible;
     if (transition) phase = 2;
+#ifdef K1_CLOCKS
+    ph = phase - 1;
+#endif
+    K1_TICK(C_FEAS);
     const bool do_refresh = transition || force == 1 ||
                             (niter > 0 && niter % p.refactor_period == 0);
     if (do_refresh) {
-      post(ctl, epoch, kRefresh, g.size);
+      post_grid(kRefresh);
       refresh(L, m, n, sm, g);
+      K1_TICK(C_REFRESH);
     }
 
     // ---- phase-1 costs sigma (into vm) and total infeasibility -------------
@@ -399,9 +566,12 @@ simplex_kernel(const float* __restrict__ A_all, const float* __restrict__ b_all,
     }
     const float infeas = block_sum(part, sm);  // its barriers publish vm
     const bool p1 = phase == 1;
+    K1_TICK(C_SIGMA);
     if (p1) {  // d1 = -(sigma B^-1) A, zero on basic columns
-      post(ctl, epoch, kDuals, g.size);
-      phase1_duals(L, m, n, g);
+      post_cluster(kDuals);
+      K1_TICK(C_DUALS_POST);
+      phase1_duals(L, m, n, gp);
+      K1_PHASE(C_DUALS_WORK, C_DUALS_SYNC);
     }
     const float* dcur = p1 ? L.dc : L.d;
 
@@ -424,6 +594,7 @@ simplex_kernel(const float* __restrict__ A_all, const float* __restrict__ b_all,
     const int q_b = block_min_int(first, sm);
     const bool found = q_b < n;
     const int q = bland ? q_b : q_d;
+    K1_TICK(C_PRICE);
 
     bool unbounded = false;
     if (found) {
@@ -432,8 +603,11 @@ simplex_kernel(const float* __restrict__ A_all, const float* __restrict__ b_all,
 
       // ---- FTRAN: w = B^-1 A[:, q] -----------------------------------------
       for (int i = tid; i < m; i += kThreads) L.vm[i] = L.A[(size_t)i * n + q];
-      post(ctl, epoch, kFtran, g.size);  // its barrier publishes vm
-      ftran(L, m, g);
+      K1_TICK(C_BOOK);
+      post_cluster(kFtran);  // its barrier publishes vm
+      K1_TICK(C_FTRAN_POST);
+      ftran(L, m, gp);
+      K1_PHASE(C_FTRAN_WORK, C_FTRAN_SYNC);
 
       // ---- ratio test (unified phase rule); ratios into pr, targets into ym
       float tmin = INFINITY;
@@ -465,6 +639,7 @@ simplex_kernel(const float* __restrict__ A_all, const float* __restrict__ b_all,
       unbounded = !isfinite(min_nan(t_rows, rng_q));
       const float t = flip ? rng_q : L.pr[r];
       const float tgt_r = L.ym[r];
+      K1_TICK(C_RATIO);
 
       if (flip && !unbounded) {
         // ---- bound flip: the entering variable crosses to its other bound --
@@ -484,9 +659,12 @@ simplex_kernel(const float* __restrict__ A_all, const float* __restrict__ b_all,
         const float c_q = L.c[q];
         __syncthreads();  // every thread holds the pre-pivot scalars
         for (int j = tid; j < m; j += kThreads) L.pr[j] = L.Binv[(size_t)r * m + j] / wr;
-        if (tid == 0 && g.size > 1) *piv = v;
-        post(ctl, epoch, kPivot, g.size);  // publishes pr and the scalars
-        pivot_sweeps(L, v, m, n, g);
+        if (tid == 0) sm.piv = v;
+        K1_TICK(C_BOOK);
+        post_cluster(kPivot);  // publishes pr and the scalars
+        K1_TICK(C_SWEEPS_POST);
+        pivot_sweeps(L, v, m, n, gp);
+        K1_PHASE(C_SWEEPS_WORK, C_SWEEPS_SYNC);
         if (tid == 0) {
           L.basis[r] = q;
           L.loB[r] = lo_q;
@@ -517,12 +695,26 @@ simplex_kernel(const float* __restrict__ A_all, const float* __restrict__ b_all,
     const bool improved = infeas < best - 1e-6f;
     noimp = p1 ? (improved ? 0 : noimp + 1) : 0;
     best = p1 ? min_nan(best, infeas) : best;
+    K1_TICK(C_BOOK);
+#ifdef K1_CLOCKS
+    ++iters[ph];
+#endif
   }
   if (status == RUNNING) status = MAX_ITER;
-  post(ctl, epoch, kExit, g.size);
+  post_grid(kExit);
+  if (C > 1) cluster_sync();  // the cluster's workers have read the command
   if (tid == 0) {
     L.res[0] = status;
     L.res[1] = niter;
+#ifdef K1_CLOCKS
+    clk_start += clock64() - clk_last;
+    for (int k = 0; k < 2 * kParts; ++k)
+      atomicAdd(&g_clocks[(k / kParts) * (kParts + 1) + k % kParts],
+                (unsigned long long)sm.clk[k / kParts][k % kParts]);
+    atomicAdd(&g_clocks[kParts], iters[0]);
+    atomicAdd(&g_clocks[2 * kParts + 1], iters[1]);
+    atomicAdd(&g_clocks[2 * (kParts + 1)], (unsigned long long)clk_start);
+#endif
   }
 }
 
@@ -530,30 +722,88 @@ simplex_kernel(const float* __restrict__ A_all, const float* __restrict__ b_all,
 // matrix and two Newton temporaries), eight m-vectors, three n-vectors.
 size_t lp_floats(int m, int n) { return 4 * (size_t)m * m + 8 * (size_t)m + 3 * (size_t)n; }
 
+// The configuration of a launch of `blocks` blocks in clusters of `cluster`
+// (1: none), cooperative (all its blocks resident at once) or not.
+struct Launch {
+  cudaLaunchAttribute a[2];
+  cudaLaunchConfig_t cfg = {};
+  Launch(int blocks, int cluster, bool cooperative, cudaStream_t st) {
+    unsigned k = 0;
+    if (cluster > 1) {
+      a[k].id = cudaLaunchAttributeClusterDimension;
+      a[k].val.clusterDim.x = cluster;
+      a[k].val.clusterDim.y = 1;
+      a[k++].val.clusterDim.z = 1;
+    }
+    if (cooperative) {
+      a[k].id = cudaLaunchAttributeCooperative;
+      a[k++].val.cooperative = 1;
+    }
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(kThreads);
+    cfg.stream = st;
+    cfg.attrs = a;
+    cfg.numAttrs = k;
+  }
+};
+
+// The thread-block cluster of a one-LP launch on the current device: 16
+// blocks where the device allows that non-portable size and holds at least
+// one such cluster of the kernel, else the portable 8; and how many of them
+// it holds at once.  Asked of the device once (a launch of a size 16 needs
+// the attribute set first), then read from `known`.
+cudaError_t cluster_limits(int* size, int* clusters) {
+  constexpr int kDevices = 64;
+  static int known[kDevices][2];  // (size, clusters) of a device asked; 0: not yet
+  int dev = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && known[dev][0] > 0) {
+    *size = known[dev][0];
+    *clusters = known[dev][1];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err != cudaSuccess) return err;
+  const bool wide = cudaFuncSetAttribute(simplex_kernel,
+                                         cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                         1) == cudaSuccess;
+  cudaGetLastError();  // a refused size 16 is no error of the launch
+  for (int c = wide ? 16 : 8; c >= 8; c /= 2) {
+    const Launch one(c, c, false, 0);
+    int k = 0;
+    err = cudaOccupancyMaxActiveClusters(&k, simplex_kernel, &one.cfg);
+    if (err == cudaSuccess && k >= 1) {
+      *size = c;
+      *clusters = k;
+      if (dev < kDevices) {
+        known[dev][0] = c;
+        known[dev][1] = k;
+      }
+      return cudaSuccess;
+    }
+    cudaGetLastError();
+  }
+  return err == cudaSuccess ? cudaErrorNotSupported : err;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Floats of global scratch a launch of `batch` LPs needs: each LP's, then
-// the grid's control block and a pivot's scalars.
+// the grid's control block.
 size_t batched_simplex_workspace_floats(int batch, int m, int n) {
-  return (size_t)batch * lp_floats(m, n) + (sizeof(Ctl) + sizeof(Pivot)) / sizeof(float);
+  return (size_t)batch * lp_floats(m, n) + sizeof(Ctl) / sizeof(float);
 }
 
-// What bounds the grid of a one-LP launch on the current device: its SM count
-// and how many blocks of the kernel one SM holds.  Returns a cudaError_t,
-// cudaErrorNotSupported when the device cannot launch a cooperative grid.
-int batched_simplex_grid_limits(int* sm_count, int* per_sm) {
-  int dev = 0, coop = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, simplex_kernel, kThreads, 0);
-  return static_cast<int>(err);
+// What bounds the grid of a one-LP launch on the current device: the blocks
+// of its thread-block cluster and how many such clusters of the kernel it
+// holds at once.  Returns a cudaError_t, cudaErrorNotSupported when the
+// device cannot launch a cooperative grid or hold one cluster.
+int batched_simplex_cluster_limits(int* size, int* clusters) {
+  return static_cast<int>(cluster_limits(size, clusters));
 }
 
 // Launch K1 on `stream` for `batch` LPs.  A (batch, m, n), b (batch, m),
@@ -562,11 +812,13 @@ int batched_simplex_grid_limits(int* sm_count, int* per_sm) {
 // (batch, m + n + 2) i32 receives [basis | vstat | status | niter]; ws holds
 // batched_simplex_workspace_floats(batch, m, n) floats and leaves each LP's
 // final B^-1 in its first m * m.  A batch of one runs as one cooperative
-// grid of `blocks` blocks (1 to kMaxGrid, all resident at once: at most
-// batched_simplex_grid_limits' sm_count x per_sm), and its results do not
-// depend on `blocks`; a larger batch runs one block per LP and takes
-// `blocks` = 1 only.  Returns the cudaError_t of the launch (never a smaller
-// grid instead); does not synchronise.
+// grid of `blocks` blocks, in thread-block clusters of the size that
+// batched_simplex_cluster_limits gives (`blocks` a whole number of them, at
+// most kMaxGrid, all resident at once: at most its clusters), or as one block
+// with no cluster (`blocks` = 1); its results do not depend on `blocks`.  A
+// larger batch runs one block per LP and takes `blocks` = 1 only.  Returns
+// the cudaError_t of the launch (never a smaller grid instead); does not
+// synchronise.
 int batched_simplex_launch(const float* A, const float* b, const float* c,
                            const float* lo, const float* hi, const int* basis0,
                            const int* vstat0, const float* Binv0, int* out,
@@ -585,6 +837,7 @@ int batched_simplex_launch(const float* A, const float* b, const float* c,
   p.bland_after = bland_after;
   p.warm = basis0 != nullptr;
   p.wide = batch == 1;
+  p.cluster = 1;
   p.feas_tol = feas_tol;
   p.opt_tol = opt_tol;
   p.pivot_tol = pivot_tol;
@@ -596,17 +849,37 @@ int batched_simplex_launch(const float* A, const float* b, const float* c,
                                                ws, stride, ctl, p);
     return static_cast<int>(cudaGetLastError());
   }
-  cudaError_t err = zero_ctl(ctl, st);
+  cudaError_t err = cudaSuccess;
+  if (blocks > 1) {  // a grid of other than whole clusters: the launch refuses it
+    int clusters = 0;
+    err = cluster_limits(&p.cluster, &clusters);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  err = zero_ctl(ctl, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {&A,    &b,   &c,      &lo,   &hi,  &basis0, &vstat0,
                   &Binv0, &out, &ws, &stride, &ctl, &p};
-  err = cudaLaunchCooperativeKernel((void*)simplex_kernel, dim3(blocks), dim3(kThreads),
-                                    args, 0, st);
-  return static_cast<int>(err == cudaSuccess ? cudaGetLastError() : err);
+  const Launch grid(blocks, p.cluster, true, st);
+  err = cudaLaunchKernelExC(&grid.cfg, (const void*)simplex_kernel, args);
+  const cudaError_t last = cudaGetLastError();  // also clears a refused launch's
+  return static_cast<int>(err == cudaSuccess ? last : err);
 }
 
 const char* batched_simplex_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef K1_CLOCKS
+// Copy the leaders' cycle sums (kClockWords values: phase 1's parts C_FEAS ..
+// C_BOOK and its iterations, phase 2's, then the starts and exits) into
+// `host` and zero them.  Synchronises.
+int batched_simplex_clocks(unsigned long long* host) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(host, g_clocks, sizeof(g_clocks));
+  const unsigned long long zero[kClockWords] = {};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_clocks, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif
 
 }  // extern "C"

@@ -9,7 +9,9 @@
 // that reads what another block wrote, and ends on a `grid_sync`, so that a
 // worker is back at its wait before the leader can post again.  Every output
 // keeps the fma chain it has on one block, so results do not depend on G.
-// With G = 1 a post is a block barrier and so is a grid barrier.
+// With G = 1 a post is a block barrier and so is a grid barrier.  (K1 hands a
+// pivot's phases to the leader's thread-block cluster instead, through
+// `cluster_sync` and `cluster_map` below; the grid keeps its refresh.)
 //
 // Memory visibility: L1 is not coherent across SMs.  The leader publishes
 // with a fence and a release store of the epoch, a worker takes it with an
@@ -97,6 +99,29 @@ __device__ void worker_loop(Ctl* ctl, int& slot, unsigned poll_ns, Run run) {
     if (cmd == (int)kExit) return;
     run(cmd);
   }
+}
+
+// ---- one thread-block cluster (Hopper) -------------------------------------
+// K1 hands its per-pivot phases to the blocks of the leader's cluster, which
+// meet at the cluster's hardware barrier instead of the grid's atomics.
+
+// Every thread of every block of this block's cluster waits here until all
+// have arrived; the writes of each (global and shared memory) before it are
+// visible to every thread of the cluster after it (release and acquire at
+// cluster scope).  Block-uniform, like __syncthreads.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The address of `p`, an object in this block's shared memory, in the shared
+// memory of block `rank` of the cluster (a generic pointer: distributed shared
+// memory).  The object must not be read after its block has exited.
+template <class T>
+__device__ __forceinline__ T* cluster_map(T* p, unsigned rank) {
+  unsigned long long r;
+  asm volatile("mapa.u64 %0, %1, %2;" : "=l"(r) : "l"(p), "r"(rank));
+  return reinterpret_cast<T*>(r);
 }
 
 // Host side: zero the control block's command, epoch and barrier words on

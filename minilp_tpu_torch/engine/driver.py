@@ -420,7 +420,7 @@ def _try_megakernel_solve(can: CanonicalLP, opts: SolverOptions,
     fault raises.  `warm_state=(basis, vstat, Binv)` (unbatched host arrays)
     re-solves from a previous basis: the incremental API's warm restart.
     """
-    from ..ops.kernels.batched_simplex import megakernel_rows, upload
+    from ..ops.kernels import batched_simplex as bs
 
     dev = _device(opts)
     if warm_state is not None:
@@ -429,10 +429,11 @@ def _try_megakernel_solve(can: CanonicalLP, opts: SolverOptions,
     with profiling.span("megakernel", dev):
         # f32 on the device; `_finish_claim` checks the basis in exact f64
         with profiling.span("upload", dev):
-            inputs = upload(dev, *lp, dtype=np.float32)
+            inputs = bs.upload(dev, *lp, dtype=np.float32)
         # K1's launch alone, with the copy of its result rows back
+        clusters = bs.cluster_launches
         with profiling.span("megakernel_launch", dev):
-            rows = megakernel_rows(
+            rows = bs.megakernel_rows(
                 *inputs,
                 slack0=can.nv,
                 max_iter=opts.effective_max_iter(can.M, can.N),
@@ -440,6 +441,8 @@ def _try_megakernel_solve(can: CanonicalLP, opts: SolverOptions,
                 warm_state=warm_state,
             ).cpu().numpy()
         profiling.bump_stage("megakernel_pivots", int(rows[0, -1]))
+        if bs.cluster_launches > clusters:
+            profiling.bump_stage("megakernel_cluster")
     m, n = can.M, can.N
     return _finish_claim("megakernel", _K1_POLISHED, can, rows[0, :m],
                          rows[0, m:m + n].astype(np.int8), int(rows[0, m + n]),

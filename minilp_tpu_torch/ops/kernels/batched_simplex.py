@@ -5,10 +5,12 @@ bounded two-phase primal simplex of each LP runs inside one kernel launch —
 pricing, FTRAN, the ratio test, the rank-1 product-form update of a dense
 f32 B⁻¹ and the periodic Newton refresh — with no host round trip per pivot.
 A batch runs one LP per thread block (grid = batch); a launch of one LP, the
-single-LP `Problem.solve()` path, runs as one cooperative grid
-(`k1_grid_blocks`: one block per SM at the main path's shapes) whose extra
-blocks join the refresh, the recompute and each pivot's m²- and m·n-class
-sweeps.  The kernel is hand-written CUDA C++ for Hopper
+single-LP `Problem.solve()` path, runs as one cooperative grid of
+thread-block clusters (`k1_grid_blocks`: as many clusters as the card holds
+at the main path's shapes).  The leader's cluster takes each pivot's
+phase-1 duals, FTRAN, rank-1 update and pivot row, handed over at the
+cluster's barrier; the whole grid takes the refresh and the recompute.  The
+kernel is hand-written CUDA C++ for Hopper
 (`minilp_tpu_torch/csrc/batched_simplex.cu`, replacing the Pallas TPU kernel
 `_simplex_kernel`); its source note says what bounds it on an H100.
 
@@ -63,6 +65,9 @@ class BatchResult(NamedTuple):
 #: count); `chip_smoke.py` resets it before driving the main path and reads
 #: it after
 launches = 0
+#: of those, the launches whose grid ran in thread-block clusters (a batch of
+#: one on more than one block)
+cluster_launches = 0
 
 #: most blocks of one launch (`kMaxGrid` of `csrc/simplex_grid.cuh`)
 MAX_GRID = 1024
@@ -74,48 +79,80 @@ _I = ctypes.c_int
 _P = ctypes.c_void_p
 
 
-def _library() -> ctypes.CDLL:
-    lib = build.load("batched_simplex").lib
+def _library(defines: tuple = ()) -> ctypes.CDLL:
+    lib = _bind(build.load("batched_simplex", defines).lib)
+    lib.batched_simplex_cluster_limits.argtypes = [ctypes.POINTER(_I)] * 2
+    lib.batched_simplex_cluster_limits.restype = _I
+    return lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface that `raw_launch` needs, which every K1
+    library has (another checkout's too)."""
     # every pointer and the stream as c_void_p: an undeclared argument
     # would pass as a 32-bit int and cut the pointer
     lib.batched_simplex_workspace_floats.argtypes = [_I, _I, _I]
     lib.batched_simplex_workspace_floats.restype = ctypes.c_size_t
     lib.batched_simplex_launch.argtypes = [_P] * 10 + [_I] * 6 + [_F] * 3 + [_I, _I, _P]
     lib.batched_simplex_launch.restype = _I
-    lib.batched_simplex_grid_limits.argtypes = [ctypes.POINTER(_I)] * 2
-    lib.batched_simplex_grid_limits.restype = _I
     lib.batched_simplex_error_string.argtypes = [_I]
     lib.batched_simplex_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def k1_grid_blocks(m: int, n: int, sm_count: int, per_sm: int) -> int:
-    """Blocks of the cooperative grid of a one-LP K1 launch at (m, n): as
-    many as can be resident at once (`sm_count` × `per_sm`), but no more
-    than the widest grid phase has work items: the m² entries of the rank-1
-    update and the Newton gather at one per thread, the refresh GEMM's
-    64×64 tiles, the m rows of a matvec at one per warp, or the n column
-    sums at one warp per 32 columns and block.  At least 1, at most
-    `MAX_GRID`."""
-    resident = sm_count * per_sm
-    if resident < 1:
-        raise ValueError(f"no block of K1 fits: {sm_count} SMs x {per_sm} per SM")
+def k1_grid_blocks(m: int, n: int, cluster: int, clusters: int) -> int:
+    """Blocks of the cooperative grid of a one-LP K1 launch at (m, n) on a
+    device whose K1 clusters have `cluster` blocks, `clusters` of them
+    resident at once: a whole number of clusters, as many as are resident
+    but no more than the widest grid phase has work items (the m² entries
+    of the rank-1 update and the Newton gather at one per thread, the
+    refresh GEMM's 64×64 tiles, the m rows of a matvec at one per warp, or
+    the n column sums at one warp per 32 columns and block), and at most
+    `MAX_GRID`; at least one cluster."""
+    if cluster < 1 or clusters < 1:
+        raise ValueError(f"no cluster of K1 fits: {clusters} clusters of {cluster} blocks")
     tiles = -(-m // _TILE)
     work = max(-(-m * m // _THREADS), tiles * tiles, -(-m // _WARPS), -(-n // 32))
-    return max(1, min(resident, work, MAX_GRID))
+    return cluster * max(1, min(clusters, work // cluster, MAX_GRID // cluster))
+
+
+def check_blocks(blocks: Optional[int], batch: int, cluster: Optional[int] = None) -> None:
+    """Raise ValueError unless `blocks` (None: the default) can be the grid
+    of a K1 launch of `batch` LPs: 1 to `MAX_GRID`, 1 for a batch (one
+    block per LP), and for one LP 1 or a whole number of clusters of
+    `cluster` blocks (None: no card's cluster to hold it to)."""
+    if blocks is None:
+        return
+    if not 1 <= blocks <= MAX_GRID:
+        raise ValueError(f"blocks={blocks} must be in [1, {MAX_GRID}]")
+    if blocks > 1 and batch > 1:
+        raise ValueError(f"blocks={blocks} spreads one LP; a batch of {batch} runs "
+                         "one block per LP")
+    if blocks > 1 and cluster is not None and blocks % cluster:
+        raise ValueError(f"blocks={blocks} must be 1 or a whole number of clusters "
+                         f"of {cluster} blocks")
+
+
+#: `grid_limits` of each CUDA device, by index
+_LIMITS: dict = {}
 
 
 def grid_limits(device) -> Tuple[int, int]:
-    """(SM count, K1 blocks per SM) of a CUDA device; raises with the CUDA
-    error when the device cannot launch a cooperative grid."""
-    lib = _library()
-    sms, per_sm = _I(0), _I(0)
-    with torch.cuda.device(device):
-        err = lib.batched_simplex_grid_limits(ctypes.byref(sms), ctypes.byref(per_sm))
-    if err != 0:
-        msg = lib.batched_simplex_error_string(err).decode()
-        raise RuntimeError(f"batched_simplex cannot launch a cooperative grid: {msg} ({err})")
-    return sms.value, per_sm.value
+    """(blocks of a K1 cluster, clusters resident at once) of a CUDA device,
+    asked of it once; raises with the CUDA error when the device cannot
+    launch a cooperative grid of clusters."""
+    dev = torch.device(device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if index not in _LIMITS:
+        lib = _library()
+        size, clusters = _I(0), _I(0)
+        with torch.cuda.device(index):
+            err = lib.batched_simplex_cluster_limits(ctypes.byref(size), ctypes.byref(clusters))
+        if err != 0:
+            msg = lib.batched_simplex_error_string(err).decode()
+            raise RuntimeError(f"batched_simplex cannot launch a cooperative grid: {msg} ({err})")
+        _LIMITS[index] = (size.value, clusters.value)
+    return _LIMITS[index]
 
 
 def default_blocks(device, m: int, n: int) -> int:
@@ -165,10 +202,12 @@ def simplex_kernel_call(
     one device; `warm` is None or ``(basis0 (B, m) i32, vstat0 (B, n) i32,
     Binv0 (B, m, m) f32)``.  CUDA tensors launch the kernel on the current
     stream (no synchronisation): a batch of one as one cooperative grid of
-    `blocks` blocks, by default `default_blocks`, whose results do not
-    depend on it (the card checks launch `blocks=1` to show that); a larger
-    batch as one block per LP, which takes no `blocks` above 1.  A device
-    that cannot take the grid raises.  CPU tensors run `simplex_plain`.
+    `blocks` blocks, by default `default_blocks`, in clusters of the card's
+    size (`blocks` 1, one block with no cluster, or a whole number of
+    clusters), whose results do not depend on it (the card checks launch
+    `blocks=1` to show that); a larger batch as one block per LP, which
+    takes no `blocks` above 1.  A device that cannot take the grid raises.
+    CPU tensors run `simplex_plain`.
     """
     return _launch(A, b, c, lo, hi, warm, slack0=slack0, max_iter=max_iter,
                    refactor_period=refactor_period, feas_tol=feas_tol,
@@ -180,20 +219,31 @@ def _launch(A, b, c, lo, hi, warm=None, *, blocks: Optional[int] = None, **kw):
     """`simplex_kernel_call`'s work: returns (out, ws), with ws the kernel's
     workspace (None from the plain version), whose first m·m floats of each
     LP's share hold its final B⁻¹."""
-    if blocks is not None and not (1 <= blocks <= MAX_GRID):
-        raise ValueError(f"blocks={blocks} must be in [1, {MAX_GRID}]")
     _check_inputs(A, b, c, lo, hi, warm)
     Bsz, m, n = A.shape
-    if blocks is not None and blocks > 1 and Bsz > 1:
-        raise ValueError(f"blocks={blocks} spreads one LP; a batch of {Bsz} runs "
-                         "one block per LP")
+    spread = A.device.type == "cuda" and Bsz == 1 and blocks is not None and blocks > 1
+    check_blocks(blocks, Bsz, grid_limits(A.device)[0] if spread else None)
     if A.device.type == "cpu":
         return simplex_plain(A, b, c, lo, hi, warm, **kw), None
     if A.device.type != "cuda":
         raise ValueError(f"K1 runs on CUDA (kernel) or CPU (plain), not {A.device}")
-    lib = _library()
-    if blocks is None:
-        blocks = default_blocks(A.device, m, n) if Bsz == 1 else 1
+    if Bsz > 1:
+        blocks = 1
+    elif blocks is None:
+        blocks = default_blocks(A.device, m, n)
+    out, ws = raw_launch(_library(), A, b, c, lo, hi, warm, blocks=blocks, **kw)
+    global launches, cluster_launches
+    launches += 1
+    cluster_launches += blocks > 1
+    return out, ws
+
+
+def raw_launch(lib, A, b, c, lo, hi, warm, *, blocks: int, slack0, max_iter,
+               refactor_period, feas_tol, opt_tol, pivot_tol, bland_after):
+    """One launch of the K1 library `lib` (this tree's, a diagnostic build's or
+    another checkout's, bound by `_bind`) on checked CUDA inputs, on `blocks`
+    blocks; returns (out, ws).  Counts no launch."""
+    Bsz, m, n = A.shape
     out = torch.empty((Bsz, m + n + 2), dtype=torch.int32, device=A.device)
     ws = torch.empty(lib.batched_simplex_workspace_floats(Bsz, m, n),
                      dtype=torch.float32, device=A.device)
@@ -204,15 +254,12 @@ def _launch(A, b, c, lo, hi, warm=None, *, blocks: Optional[int] = None, **kw):
         err = lib.batched_simplex_launch(
             ptr(A), ptr(b), ptr(c), ptr(lo), ptr(hi),
             ptr(basis0), ptr(vstat0), ptr(Binv0), ptr(out), ptr(ws),
-            Bsz, m, n, kw["slack0"], kw["max_iter"], kw["refactor_period"],
-            kw["feas_tol"], kw["opt_tol"], kw["pivot_tol"], kw["bland_after"],
-            blocks, stream,
+            Bsz, m, n, slack0, max_iter, refactor_period, feas_tol, opt_tol, pivot_tol,
+            bland_after, blocks, stream,
         )
     if err != 0:
         msg = lib.batched_simplex_error_string(err).decode()
         raise RuntimeError(f"batched_simplex kernel launch failed: {msg} ({err})")
-    global launches
-    launches += 1
     return out, ws
 
 

@@ -9,6 +9,9 @@ is held against the plain version on the card by `test_torch_cuda.py` and
 `chip_smoke.py`.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,7 @@ from minilp_tpu.parallel.batched import make_random_batch_host
 from minilp_tpu.status import Status
 from minilp_tpu_torch.engine.state import state_from_numpy
 from minilp_tpu_torch.ops.kernels import batched_simplex as bs
+from minilp_tpu_torch.ops.kernels import build
 
 from .oracle import random_problem
 from .torch_helpers import CPU
@@ -115,23 +119,55 @@ def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
 
 
 @pytest.mark.parametrize("m,n", [(8, 16), (24, 128), (64, 256), (256, 1024), (504, 2048)])
-@pytest.mark.parametrize("sm_count,per_sm", [(132, 1), (1, 1), (132, 2), (2048, 1)])
-def test_k1_grid_blocks_within_card_and_work(m, n, sm_count, per_sm):
-    """G fits the card (all blocks resident at once, at most MAX_GRID) and
-    no block lacks an item of the widest grid phase: the m² elementwise
-    steps at one per thread, the refresh GEMM's 64×64 tiles, matvec rows at
-    one per warp, column sums at one warp per 32 columns."""
-    g = bs.k1_grid_blocks(m, n, sm_count, per_sm)
+@pytest.mark.parametrize("cluster,clusters", [(16, 8), (8, 1), (8, 16), (16, 64)])
+def test_k1_grid_blocks_within_card_and_work(m, n, cluster, clusters):
+    """G is a whole number of clusters that fits the card (all resident at
+    once, at most MAX_GRID), and no cluster but the first lacks items of
+    the widest grid phase: the m² elementwise steps at one per thread, the
+    refresh GEMM's 64×64 tiles, matvec rows at one per warp, column sums at
+    one warp per 32 columns."""
+    g = bs.k1_grid_blocks(m, n, cluster, clusters)
     work = max(-(-m * m // 512), (-(-m // 64)) ** 2, -(-m // 16), -(-n // 32))
-    assert 1 <= g <= min(sm_count * per_sm, bs.MAX_GRID, work)
-    assert g == min(sm_count * per_sm, bs.MAX_GRID, work)
-    if (m, n) in ((256, 1024), (504, 2048)) and sm_count > 1:
-        assert g > 1  # the main path's single-LP shapes go wide on an H100
+    assert g % cluster == 0 and cluster <= g <= bs.MAX_GRID
+    assert g <= cluster * clusters and (g == cluster or g <= work)
+    assert g == cluster * max(1, min(clusters, work // cluster, bs.MAX_GRID // cluster))
+    if (m, n) in ((256, 1024), (504, 2048)) and clusters > 1:
+        assert g > cluster  # the main path's single-LP shapes go wide on an H100
 
 
-def test_k1_grid_blocks_rejects_an_empty_card():
+@pytest.mark.parametrize("m,n,cluster,clusters,want", [
+    (8, 16, 16, 8, 16),          # less work than one cluster: one cluster all the same
+    (384, 1024, 16, 7, 112),     # degen2-cold's shape: every cluster the card holds
+    (384, 1024, 8, 16, 128),
+    (384, 1024, 16, 100, 288),   # the work items: 384² entries at one a thread
+    (504, 2048, 16, 100, 496),   # a whole number of clusters below the work (497)
+    (1024, 2048, 8, 1000, 1024),  # MAX_GRID
+])
+def test_k1_grid_blocks_rule(m, n, cluster, clusters, want):
+    assert bs.k1_grid_blocks(m, n, cluster, clusters) == want
+
+
+@pytest.mark.parametrize("cluster,clusters", [(132, 0), (0, 8)])
+def test_k1_grid_blocks_rejects_an_empty_card(cluster, clusters):
     with pytest.raises(ValueError):
-        bs.k1_grid_blocks(504, 2048, 132, 0)
+        bs.k1_grid_blocks(504, 2048, cluster, clusters)
+
+
+@pytest.mark.parametrize("blocks,batch,cluster", [
+    (None, 1, 16), (None, 5, None), (1, 1, 16), (1, 1, None), (1, 4, 8), (16, 1, 16),
+    (112, 1, 16), (24, 1, 8), (12, 1, None), (bs.MAX_GRID, 1, 16)])
+def test_check_blocks_takes_one_block_or_whole_clusters(blocks, batch, cluster):
+    """One block with no cluster, or for one LP a whole number of clusters
+    (any count while the card's cluster is not known)."""
+    bs.check_blocks(blocks, batch, cluster)
+
+
+@pytest.mark.parametrize("blocks,batch,cluster", [
+    (0, 1, 16), (bs.MAX_GRID + 16, 1, 16), (12, 1, 16), (20, 1, 8), (2, 1, 16),
+    (16, 2, 16), (16, 2, None)])
+def test_check_blocks_rejects(blocks, batch, cluster):
+    with pytest.raises(ValueError, match="blocks"):
+        bs.check_blocks(blocks, batch, cluster)
 
 
 @pytest.mark.parametrize("B,blocks", [(1, 0), (1, bs.MAX_GRID + 1), (2, 2), (4, 132)])
@@ -175,3 +211,36 @@ def test_wrapper_rejects_bad_inputs(fault):
                 torch.zeros(2, 4, 4))
     with pytest.raises(ValueError):
         bs.simplex_kernel_call(A, b, c, lo, hi, warm, slack0=6, max_iter=10, **KW)
+
+
+def test_k1_split_parts_are_the_kernels_clock_parts():
+    """`k1_split.PARTS` names the clock build's `Part` enum one for one, in
+    its order: the split reads the clock words by position."""
+    from minilp_tpu_torch.utils import k1_split
+
+    src = (Path(build.__file__).resolve().parents[2] / "csrc" / "batched_simplex.cu").read_text()
+    enum = re.search(r"enum Part \{(.*?)\};", src, re.S).group(1)
+    names = [w.strip() for w in re.sub(r"//[^\n]*", "", enum).split(",") if w.strip()]
+    assert names[-1] == "kParts"
+    assert tuple(w[2:].lower().replace("_", ".") for w in names[:-1]) == k1_split.PARTS
+
+
+def test_k1_split_degen2_is_the_cells_pool():
+    """The split's "degen2" shape is `degen2-cold`'s configuration and pool,
+    at the padded (384, 1024) that K1 runs, at the driver's `opt_tol`."""
+    import json
+
+    from minilp_tpu_torch.engine.driver import _k1_opt_tol
+    from minilp_tpu_torch.options import SolverOptions
+    from minilp_tpu_torch.utils import k1_split
+
+    root = Path(__file__).resolve().parents[1] / "lpbench"
+    shape = json.loads((root / "configs" / "netlib-degen2.json").read_text())["shape"]
+    params = json.loads((root / "workloads" / "degen2-cold.json").read_text())["params"]
+    assert k1_split.SHAPES["degen2"] == (shape["rows"], shape["cols"], shape["density"])
+    assert k1_split.DEGEN2_POOL_SEED == params["pool_seed"]
+    lps = k1_split.instances("degen2")
+    assert len(lps) == k1_split.DEGEN2_LPS
+    for can, opt_tol in lps:
+        assert can.A.shape == (384, 1024)
+        assert opt_tol == _k1_opt_tol(can, SolverOptions())

@@ -87,18 +87,32 @@ def test_kernel_matches_plain_warm_start(cuda):
                       warm=(cold.basis, cold.vstat, Binv0))
 
 
-@pytest.mark.parametrize("case", ["cold", "warm", "phase1"])
+#: `degen2-cold`'s configuration (Netlib degen2's 444 × 534) and the first
+#: LP of its pool
+DEGEN2, DEGEN2_SEED = (444, 534, 0.016853932584269662), [20261021, 0, 0]
+
+
+@pytest.mark.parametrize("case", ["cold", "warm", "phase1", "degen2", "one_cluster"])
 def test_k1_wide_matches_one_block(cuda, case):
-    """A one-LP K1 launch on its default cooperative grid and on one block:
-    the out rows (basis, vstat, status, niter) and the bits of the final
-    B⁻¹ are equal.  "phase1" is an all-equality network flow, whose slack
-    basis is infeasible everywhere."""
+    """A one-LP K1 launch on its default cooperative grid of clusters (on
+    one cluster: "one_cluster") and on one block: the out rows (basis,
+    vstat, status, niter) and the bits of the final B⁻¹ are equal.
+    "phase1" is an all-equality network flow, whose slack basis is
+    infeasible everywhere; "degen2" a presolved LP of `degen2-cold` at the
+    driver's options (its phase 1 included), "one_cluster" the same on one
+    cluster."""
     if case == "phase1":
         prob = network_flow_problem(60, 200, seed=4)
+    elif case in ("degen2", "one_cluster"):
+        prob = degenerate_problem(*DEGEN2, seed=DEGEN2_SEED)
     else:
         prob = netlib_shaped_problem(70, 150, 0.08, seed=2)
     can = canonicalize(presolve_problem(prob)[0])
     kw = dict(KW, slack0=can.nv, max_iter=4000, refactor_period=16)
+    if case in ("degen2", "one_cluster"):
+        opts = SolverOptions()
+        kw.update(refactor_period=32, opt_tol=driver._k1_opt_tol(can, opts),
+                  max_iter=opts.effective_max_iter(can.M, can.N))
     hi, warm = can.hi, None
     if case == "warm":
         cold = bs.solve_batch_megakernel(can.A[None], can.b[None], can.c[None], can.lo[None],
@@ -114,14 +128,30 @@ def test_k1_wide_matches_one_block(cuda, case):
     args = [torch.tensor(np.asarray(x, dtype=np.float32)[None], device=cuda)
             for x in (can.A, can.b, can.c, can.lo, hi)]
     m, n = can.A.shape
-    assert bs.default_blocks(cuda, m, n) > 1
+    cluster = bs.grid_limits(cuda)[0]
+    blocks = bs.default_blocks(cuda, m, n)
+    assert blocks > 1 and blocks % cluster == 0
+    if case == "degen2":
+        assert blocks > cluster  # blocks outside the leader's cluster join the refresh
+    grid = cluster if case == "one_cluster" else None
     before = bs.launches
-    (wide, ws_wide), (one, ws_one) = (bs._launch(*args, warm, blocks=g, **kw) for g in (None, 1))
+    (wide, ws_wide), (one, ws_one) = (bs._launch(*args, warm, blocks=g, **kw) for g in (grid, 1))
     torch.cuda.synchronize()
     assert bs.launches == before + 2
     assert int(wide[0, -1]) > 0  # pivots
     assert torch.equal(wide, one)
     assert torch.equal(ws_wide[:m * m].view(torch.int32), ws_one[:m * m].view(torch.int32))
+
+
+def test_degen2_solve_runs_k1_on_a_cluster(cuda):
+    """One `degen2-cold`-shaped `Problem.solve()`: K1's route, its launch in
+    thread-block clusters, counted once each."""
+    prob = degenerate_problem(*DEGEN2, seed=DEGEN2_SEED)
+    profiling.reset_stages()
+    sol = prob.solve()
+    stages = profiling.stages(None)
+    assert stages["route.megakernel"] == 1 and stages["megakernel_cluster"] == 1
+    assert sol._engine.certified
 
 
 def test_main_path_goes_through_the_kernel(cuda, tmp_path, monkeypatch):

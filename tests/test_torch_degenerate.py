@@ -151,6 +151,30 @@ def test_a_k1_max_iter_claim_is_declined_and_the_engine_answers(monkeypatch, max
     assert status == "optimal" and rel_err(obj, highs) <= 1e-9
 
 
+@pytest.mark.parametrize("clustered", [False, True])
+def test_the_driver_counts_a_k1_launch_on_a_cluster(monkeypatch, clustered):
+    """`megakernel_cluster` counts each K1 solve whose launch ran in
+    thread-block clusters, as `batched_simplex.cluster_launches` saw it (a
+    one-LP launch on the card; the CPU's plain version runs none, so the
+    patched call poses one)."""
+    from minilp_tpu_torch.ops.kernels import batched_simplex as bs
+
+    real = bs.megakernel_rows
+
+    def rows(*a, **kw):
+        out = real(*a, **kw)
+        bs.cluster_launches += int(clustered)
+        return out
+
+    monkeypatch.setattr(bs, "megakernel_rows", rows)
+    monkeypatch.setattr(bs, "cluster_launches", bs.cluster_launches)
+    prob = synth.degenerate_problem(40, 100, 0.08, seed=0)
+    prob.options = K1
+    _, stages = _solve_counted(prob)
+    assert stages["route.megakernel"] == 1
+    assert stages.get("megakernel_cluster", 0) == int(clustered)
+
+
 def test_the_jax_package_keeps_duplicated_rows():
     """The deviation, recorded: the reference's presolve keeps the 6 copies
     that the port's merges."""
